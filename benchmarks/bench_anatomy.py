@@ -1,14 +1,23 @@
-"""Tick anatomy: where the flagship lane-engine RTI tick actually goes.
+"""Tick anatomy: where the flagship lane-engine RTI tick goes on the GPU.
 
-Times, scan-amortized on the real TPU at the bench configuration
-(B=512, riccati=pallas, linearize=pallas, adaptive@8):
+Times, scan-amortized on the card at the bench configuration (B=512, the
+production preset; BENCH_RICCATI overrides its Riccati sweep):
   - the full step_fn tick,
-  - QP build only (linearize kernel + assembly; all fields reduced so
+  - QP build only (linearization + assembly; all fields reduced so
     nothing is dead-code-eliminated),
   - IPM only (per-iteration perturbed dx0 so the scan cannot hoist it),
-  - the bare Riccati kernel (per-iteration perturbed gradient).
+  - one bare Riccati sweep (per-iteration perturbed gradient).
+
+With BA_TRACE=<dir> it also records a profiler trace of three full ticks
+and reports the device time inside the `linearize` named scope
+(solver/batch.py) as a share of all device time in the window.
+
+    python benchmarks/bench_anatomy.py
+    BA_TRACE=chiprun_out/anatomy_trace python benchmarks/bench_anatomy.py
 """
 
+import glob
+import json
 import os
 import sys
 import time
@@ -19,27 +28,62 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
+def device_time_by_scope(trace_dir, scope):
+    """(ns inside `scope`, ns of all device ops) summed over the GPU
+    planes of the newest trace under `trace_dir`.  An op counts as inside
+    the scope when any of its event stats names it (XLA keeps named
+    scopes in the op metadata)."""
+    import jax
+
+    paths = sorted(glob.glob(os.path.join(trace_dir, "plugins", "profile",
+                                          "*", "*.xplane.pb")))
+    data = jax.profiler.ProfileData.from_file(paths[-1])
+    inside = total = 0
+    for plane in data.planes:
+        if not plane.name.startswith("/device:GPU"):
+            continue
+        for line in plane.lines:
+            for ev in line.events:
+                total += ev.duration_ns
+                text = ev.name + " " + " ".join(
+                    str(v) for _, v in ev.stats)
+                if scope in text:
+                    inside += ev.duration_ns
+    return inside, total
+
+
 def main():
+    from mpc_collisionavoidance_tpu.utils.device import (
+        enable_compile_cache, gpu_name_and_power, require_gpu)
+
+    enable_compile_cache()
+    dev = require_gpu()
+
     import jax
     import jax.numpy as jnp
 
+    from mpc_collisionavoidance_tpu.config import production_engine
     from mpc_collisionavoidance_tpu.kernels.riccati_pallas import (
-        lqr_solve_lanes_pallas)
+        KERNEL_MAX_NX, lqr_solve_lanes_pallas)
     from mpc_collisionavoidance_tpu.ocp import builders
-    from mpc_collisionavoidance_tpu.ops.ipm_lanes import ipm_solve_lanes
-    from mpc_collisionavoidance_tpu.ops.riccati_lanes import LaneLQR
+    from mpc_collisionavoidance_tpu.ops.riccati_lanes import (
+        lqr_solve_lanes, random_lane_lqr)
     from mpc_collisionavoidance_tpu.sim import scenarios
     from mpc_collisionavoidance_tpu.solver.batch import (
         LaneRTISolver, to_lanes)
 
     B = int(os.environ.get("BA_BATCH", "512"))
     reps = int(os.environ.get("BA_REPS", "20"))
-    iters = int(os.environ.get("BA_ITERS", "8"))
+    preset = production_engine()
+    riccati = os.environ.get("BENCH_RICCATI", preset.riccati)
     spec = builders.usv_guidance_ca1()
     m = spec.model
     sc = scenarios.guidance_ca1_default()
-    solver = LaneRTISolver(spec, ipm_iters=iters, riccati="pallas",
-                           linearize="pallas", centering="adaptive")
+    solver = LaneRTISolver(spec, ipm_iters=preset.ipm_iters,
+                           ipm_tol=preset.ipm_tol, riccati=riccati,
+                           centering=preset.centering, mu0=preset.mu0,
+                           extra_iters=preset.extra_iters,
+                           stall_tol=preset.stall_tol)
     rng = np.random.default_rng(0)
     x0s = np.broadcast_to(sc.x0, (B, m.nx)).copy()
     x0s[:, 2] += 0.1 * rng.standard_normal(B)
@@ -47,25 +91,24 @@ def main():
     xL = to_lanes(jnp.asarray(x0s, jnp.float32))
     pL = to_lanes(np.broadcast_to(sc.params, (B, m.np_)).astype(np.float32))
     lhL = to_lanes(np.broadcast_to(sc.lh, (B, m.nh)).astype(np.float32))
+    out = {"riccati": riccati, "B": B, "device_kind": dev.device_kind}
 
     def timed(tag, fn, *args):
-        out = fn(*args)
-        jax.block_until_ready(out)
-        out = fn(*args)
-        jax.block_until_ready(out)
+        jax.block_until_ready(fn(*args))
         t0 = time.perf_counter()
         for _ in range(reps):
-            out = fn(*args)
-        jax.block_until_ready(out)
+            res = fn(*args)
+        jax.block_until_ready(res)
         ms = (time.perf_counter() - t0) * 1e3 / reps
-        print(f"{tag:28s} {ms:7.3f} ms", flush=True)
+        out[tag] = ms
+        print(f"{tag:28s} {ms:9.4f} ms", flush=True)
         return ms
 
     # warm the solver state closed-loop style
     step = jax.jit(solver.step_fn)
     for _ in range(3):
-        state, out = step(state, xL, pL, lhL)
-        xL = out.x1
+        state, o = step(state, xL, pL, lhL)
+        xL = o.x1
     jax.block_until_ready(state)
 
     @jax.jit
@@ -77,8 +120,7 @@ def main():
         (st, xx), gaps = jax.lax.scan(tick, (state, x), None, length=10)
         return gaps.sum()
 
-    ms = timed("full tick (scan/10)", full_scan, state, xL)
-    print(f"  -> per tick {ms/10:.3f} ms = {B*10e3/ms:.0f} solves/s")
+    timed("full_tick_x10_ms", full_scan, state, xL)
 
     @jax.jit
     def build_scan(state, x):
@@ -93,54 +135,52 @@ def main():
         xx, ss = jax.lax.scan(tick, x, None, length=10)
         return ss.sum()
 
-    ms = timed("build_qp only (scan/10)", build_scan, state, xL)
-    print(f"  -> per build {ms/10:.3f} ms")
+    timed("build_qp_x10_ms", build_scan, state, xL)
 
     qp0 = jax.jit(solver._build_qp)(state, xL, pL, lhL)
-    jax.block_until_ready(qp0)
 
     @jax.jit
     def ipm_scan(qp, x):
         def it(c, _):
             qpx = qp._replace(dx0=qp.dx0 + 1e-7 * c)
-            sol = ipm_solve_lanes(qpx, solver.idxbu, solver.idxbx,
-                                  iters=iters, riccati="pallas",
-                                  centering="adaptive")
+            sol = solver._solve_qp(qpx)
             return c + 1e-6 * sol.du[0, 0], sol.gap
         c, gaps = jax.lax.scan(it, x[0], None, length=10)
         return gaps.sum()
 
-    ms = timed("ipm only (scan/10)", ipm_scan, qp0, xL)
-    print(f"  -> per solve {ms/10:.3f} ms ({iters} iters, "
-          f"{ms/10/iters:.3f} ms/iter)")
+    timed("ipm_x10_ms", ipm_scan, qp0, xL)
 
-    # bare riccati kernel
-    N, nx, nu, L = spec.N, m.nx, m.nu, B
-    d = LaneLQR(
-        A=jnp.asarray(0.95 * np.eye(nx)[None, :, :, None]
-                      + 0.01 * rng.standard_normal((N, nx, nx, 1)),
-                      jnp.float32) * jnp.ones((1, 1, 1, L), jnp.float32),
-        B=jnp.asarray(0.05 * rng.standard_normal((N, nx, nu, L)), jnp.float32),
-        c=jnp.zeros((N, nx, L), jnp.float32),
-        Q=jnp.asarray(np.eye(nx)[None, :, :, None]
-                      * np.ones((N + 1, 1, 1, L)), jnp.float32),
-        S=jnp.zeros((N, nu, nx, L), jnp.float32),
-        R=jnp.asarray(np.ones((N, nu, nu, L)), jnp.float32),
-        qx=jnp.asarray(0.1 * rng.standard_normal((N + 1, nx, L)), jnp.float32),
-        qu=jnp.zeros((N, nu, L), jnp.float32),
-        dx0=jnp.zeros((nx, L), jnp.float32))
+    d = random_lane_lqr(spec.N, m.nx, m.nu, B, seed=1)
+    kernel = riccati == "pallas" or (riccati == "auto"
+                                     and m.nx <= KERNEL_MAX_NX)
+    fn = lqr_solve_lanes_pallas if kernel else lqr_solve_lanes
 
     @jax.jit
     def ric_scan(d, x):
         def it(c, _):
             dd = d._replace(qx=d.qx + 1e-7 * c)
-            dx, du = lqr_solve_lanes_pallas(dd)
+            dx, du = fn(dd)
             return c + 1e-6 * du[0, 0], dx[0, 0]
         c, o = jax.lax.scan(it, x[0], None, length=10)
         return o.sum()
 
-    ms = timed("riccati kernel (scan/10)", ric_scan, d, xL)
-    print(f"  -> per sweep {ms/10:.3f} ms")
+    timed("riccati_sweep_x10_ms", ric_scan, d, xL)
+
+    trace_dir = os.environ.get("BA_TRACE")
+    if trace_dir:
+        jax.block_until_ready(full_scan(state, xL))
+        with jax.profiler.trace(trace_dir):
+            for _ in range(3):
+                res = full_scan(state, xL)
+            jax.block_until_ready(res)
+        inside, total = device_time_by_scope(trace_dir, "linearize")
+        out["trace_linearize_ns"] = inside
+        out["trace_device_ns"] = total
+        # None when no device op carried the scope's name: the share is
+        # then unknown, not zero (build_qp_x10_ms still bounds it)
+        out["trace_linearize_share"] = inside / total if inside else None
+    print(json.dumps(out))
+    print(gpu_name_and_power())
 
 
 if __name__ == "__main__":

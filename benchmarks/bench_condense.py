@@ -1,8 +1,8 @@
-"""Partial-condensing sweep on TPU: solves/s vs group size M.
+"""Partial-condensing sweep on the GPU: solves/s vs group size M.
 
 Measures the flagship RTI tick (usv_guidance_ca1, N=100, B=512, 10 IPM
 iterations) for condense group sizes M in {1, 2, 4, 5, 10, 20} with the
-lax and pallas Riccati backends.  Partial condensing (HPIPM's knob,
+lax and pallas (Triton kernel) Riccati sweeps.  Partial condensing (HPIPM's knob,
 ops/condense_partial.py) shrinks the sequential Riccati chain from 2N to
 2N/M dependent steps — bound #2 of docs/PERF.md — at the cost of denser
 (nu' = M*nu) per-stage blocks and a per-tick condense/expand pass.
@@ -20,8 +20,7 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
 
 
-def bench_one(spec, sc, perturb_idx, B, M, riccati, linearize, iters,
-              ticks=30):
+def bench_one(spec, sc, perturb_idx, B, M, riccati, iters, ticks=30):
     import jax
     import jax.numpy as jnp
 
@@ -29,7 +28,7 @@ def bench_one(spec, sc, perturb_idx, B, M, riccati, linearize, iters,
 
     m = spec.model
     solver = LaneRTISolver(spec, ipm_iters=iters, riccati=riccati,
-                           linearize=linearize, condense=M)
+                           condense=M)
     rng = np.random.default_rng(0)
     x0s = np.broadcast_to(sc.x0, (B, m.nx)).copy()
     x0s[:, perturb_idx] += 0.1 * rng.standard_normal(B)
@@ -58,10 +57,15 @@ def main():
     ap.add_argument("-B", type=int, default=512)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--ticks", type=int, default=30)
-    ap.add_argument("--linearize", default="pallas")
     ap.add_argument("--riccati", default="lax,pallas")
     ap.add_argument("--condense", default="1,2,4,5,10,20")
     args = ap.parse_args()
+
+    from mpc_collisionavoidance_tpu.utils.device import (
+        enable_compile_cache, require_gpu)
+
+    enable_compile_cache()
+    require_gpu()
 
     from mpc_collisionavoidance_tpu.ocp import builders
     from mpc_collisionavoidance_tpu.sim import scenarios
@@ -76,8 +80,8 @@ def main():
         for M in [int(x) for x in args.condense.split(",")]:
             try:
                 sps, frac, gmax = bench_one(
-                    spec, sc, perturb_idx, args.B, M, ric, args.linearize,
-                    args.iters, args.ticks)
+                    spec, sc, perturb_idx, args.B, M, ric, args.iters,
+                    args.ticks)
                 print(f"riccati={ric:7s} M={M:3d}: {sps:9.1f} solves/s  "
                       f"converged={frac:.2f} max_gap={gmax:.1e}", flush=True)
             except Exception as e:

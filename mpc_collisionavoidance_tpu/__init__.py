@@ -1,9 +1,9 @@
-"""mpc_collisionavoidance_tpu — TPU-native nonlinear MPC for ASV path following
+"""mpc_collisionavoidance_tpu — accelerator-native nonlinear MPC for ASV path following
 and LiDAR-based collision avoidance.
 
 A ground-up JAX / XLA / Pallas re-design of the capabilities of the
 ivanacollg/MPC_CollisionAvoidance reference stack (acados SQP-RTI + HPIPM +
-CasADi codegen + ROS C++ nodes), built TPU-first:
+CasADi codegen + ROS C++ nodes), built accelerator-first:
 
 - dynamics are pure JAX functions; sensitivities come from `jax.jacfwd`
   through an RK4 shooting step (replacing CasADi-generated VDE C code),

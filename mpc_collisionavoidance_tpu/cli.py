@@ -233,7 +233,7 @@ def _cmd_mission(args):
     """Full flagship mission (waypoints + fake LiDAR field) with the
     live-safety-marker outputs: JSONL stream and/or animated GIF — the
     reference's rviz obstacle/safety-band visualization
-    (src/nmpc_guidance_ca1.cpp:378-414), TPU-native."""
+    (src/nmpc_guidance_ca1.cpp:378-414), on the device."""
     import jax
 
     from mpc_collisionavoidance_tpu.guidance import (
@@ -302,7 +302,7 @@ def main(argv=None):
                             "reference value)")
     p_run.add_argument("--steps", type=int, default=1000)
     p_run.add_argument("--plots", help="save dashboards to this path prefix")
-    p_run.add_argument("--platform", help="pin jax platform (cpu/tpu)")
+    p_run.add_argument("--platform", help="pin jax platform (cpu/gpu)")
     p_run.set_defaults(fn=_cmd_run)
 
     p_race = sub.add_parser(
@@ -310,7 +310,7 @@ def main(argv=None):
                      "race_cars with the receding progress reference)")
     p_race.add_argument("--steps", type=int, default=700)
     p_race.add_argument("--plots", help="save the track plot to this prefix")
-    p_race.add_argument("--platform", help="pin jax platform (cpu/tpu)")
+    p_race.add_argument("--platform", help="pin jax platform (cpu/gpu)")
     p_race.set_defaults(fn=_cmd_race)
 
     p_mis = sub.add_parser(
@@ -323,7 +323,7 @@ def main(argv=None):
     p_mis.add_argument("--markers", help="write the JSONL marker stream here")
     p_mis.add_argument("--gif", help="render an animated GIF here")
     p_mis.add_argument("--fps", type=int, default=20)
-    p_mis.add_argument("--platform", help="pin jax platform (cpu/tpu)")
+    p_mis.add_argument("--platform", help="pin jax platform (cpu/gpu)")
     p_mis.set_defaults(fn=_cmd_mission)
 
     p_bench = sub.add_parser("bench", help="headline throughput benchmark")
@@ -333,6 +333,8 @@ def main(argv=None):
     p_models.set_defaults(fn=_cmd_models)
 
     args = parser.parse_args(argv)
+    from mpc_collisionavoidance_tpu.utils.device import enable_compile_cache
+    enable_compile_cache()
     return args.fn(args)
 
 

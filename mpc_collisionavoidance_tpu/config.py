@@ -17,16 +17,24 @@ from typing import Any, Dict, Optional
 from mpc_collisionavoidance_tpu.models import registry
 from mpc_collisionavoidance_tpu.ocp import builders
 
+#: lane-engine Riccati sweeps: the plain `lax.scan` sweep, the Triton
+#: kernel (kernels/riccati_pallas.py, NVIDIA GPUs), the kernel up to its
+#: KERNEL_MAX_NX and `lax` above it ("auto"), the parallel scan
+RICCATI_BACKENDS = ("lax", "pallas", "auto", "pscan")
+
+#: the sweep the production preset runs on each platform
+PRESET_RICCATI = {"gpu": "auto", "cpu": "lax"}
+
 
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
     engine: str = "lane"          # "lane" (throughput) | "instance" (vmap)
     ipm_iters: int = 12
     ipm_tol: float = 1e-7
-    riccati: str = "lax"          # lane engine: "lax" | "pallas" | "pscan"
-                                  # | "fused" (whole-IPM kernel)
-    linearize: str = "lax"        # lane engine: "lax" | "pallas" (fused
-                                  # rollout+VDE kernel, TPU only)
+    riccati: str = "lax"          # lane engine: "lax" | "pallas" (the
+                                  # Triton sweep kernel, GPU) | "auto"
+                                  # (kernel up to KERNEL_MAX_NX, lax
+                                  # above) | "pscan"
     qp_backend: str = "riccati"   # instance engine: "riccati" | "dense"
                                   # (full condensing, the qpOASES role)
     centering: str = "fixed"      # "fixed" | "adaptive" (lane engine:
@@ -54,31 +62,20 @@ class SolverConfig:
         if self.extra_iters and self.engine == "instance":
             raise ValueError("stall escalation (extra_iters > 0) is "
                              "lane-engine-only")
-        if self.extra_iters and self.riccati.startswith("fused"):
-            raise ValueError("stall escalation is not available in the "
-                             "fused whole-IPM kernel")
-        if self.riccati not in ("lax", "pallas", "pallas_interpret",
-                                "pscan", "fused", "fused_interpret"):
+        if self.riccati not in RICCATI_BACKENDS:
             raise ValueError(f"unknown riccati backend '{self.riccati}'")
-        if self.linearize not in ("lax", "pallas", "pallas_interpret"):
-            raise ValueError(
-                f"unknown linearize backend '{self.linearize}'")
         if self.qp_backend not in ("riccati", "dense"):
             raise ValueError(f"unknown qp_backend '{self.qp_backend}'")
         if self.centering not in ("fixed", "adaptive", "mehrotra"):
             raise ValueError(f"unknown centering '{self.centering}'")
-        if self.centering != "fixed" and self.riccati.startswith("fused"):
-            raise ValueError(f"{self.centering} centering is not available "
-                             "in the fused whole-IPM kernel")
         if self.centering == "adaptive" and self.engine == "instance":
             raise ValueError("adaptive centering is lane-engine-only; the "
                              "instance engine supports fixed/mehrotra")
         if isinstance(self.mu0, str) and self.mu0 != "auto":
             raise ValueError(f"unknown mu0 '{self.mu0}' (float or 'auto')")
         if self.engine == "instance" and self.riccati != "lax":
-            raise ValueError("pallas riccati requires the lane engine")
-        if self.engine == "instance" and self.linearize != "lax":
-            raise ValueError("pallas linearize requires the lane engine")
+            raise ValueError(f"{self.riccati} riccati requires the lane "
+                             "engine")
         if self.engine == "lane" and self.qp_backend != "riccati":
             raise ValueError("the dense QP backend requires the "
                              "instance engine")
@@ -90,7 +87,6 @@ class SolverConfig:
             return LaneRTISolver(spec, ipm_iters=self.ipm_iters,
                                  ipm_tol=self.ipm_tol,
                                  riccati=self.riccati,
-                                 linearize=self.linearize,
                                  centering=self.centering,
                                  mu0=self.mu0,
                                  extra_iters=self.extra_iters,
@@ -110,20 +106,26 @@ def production_engine(platform: Optional[str] = None) -> SolverConfig:
     headline bench advertises (round-4 VERDICT: three surfaces had three
     different defaults).
 
-    On TPU: lane engine, fused Pallas Riccati + linearize kernels,
-    per-lane adaptive centering at 8 fixed IPM iterations, plus a
-    stall-escalation budget so the schedule holds its 1e-5 duality-gap
-    health gate at the reference's full 1000-tick mission length
-    (reference scripts/usv_guidance_ca1/main.py:116), not just the bench
-    window — see docs/PERF.md "Mission-length convergence".
+    Lane engine, per-lane adaptive centering at 4 fixed IPM iterations,
+    plus a stall-escalation budget so the schedule holds its 1e-5
+    duality-gap health gate at the reference's full 1000-tick mission
+    length (reference scripts/usv_guidance_ca1/main.py:116), not just the
+    bench window — see docs/PERF.md "Mission-length convergence".
 
-    On CPU (dev/test), the same schedule rides the portable lax paths.
-    Explicit CLI flags still override individual fields.
+    The Riccati sweep follows the platform (`PRESET_RICCATI`): on a GPU
+    "auto", the Triton kernel for models up to the kernel's KERNEL_MAX_NX
+    states and the plain `lax` sweep above (kernels/riccati_pallas.py says
+    why); the `lax` sweep on the CPU (dev/test).  Any other platform
+    raises: there is no silent default.  Explicit CLI
+    flags still override individual fields.
     """
     if platform is None:
         import jax
         platform = jax.default_backend()
-    on_tpu = platform not in ("cpu", "gpu", "cuda", "rocm")
+    if platform not in PRESET_RICCATI:
+        raise ValueError(
+            f"no production preset for platform '{platform}'; known: "
+            f"{sorted(PRESET_RICCATI)}")
     # The schedule: adaptive centering, FOUR fixed iterations, then
     # stall escalation — a bounded while_loop of extra iterations that
     # runs only while some lane's duality gap exceeds the tolerance
@@ -138,18 +140,13 @@ def production_engine(platform: Optional[str] = None) -> SolverConfig:
     # restarting its barrier at 1.0 burns ~2 iterations just walking mu
     # back down; gradient scaling starts it where the QP actually is
     # while 1e5-weight cold QPs (usv_position_control) still get a large
-    # mu0.  Measured v5e sweep (full bench gates green at every point,
-    # mission_converged_frac 1.0): base6/mu0=1 = 208k, base4/mu0=1e-3 =
-    # 288.8k, base4/mu0=auto = 286.7k solves/s with whole-mission
-    # throughput 175-178k (vs 134k at mu0=1) — docs/PERF.md.
+    # mu0.
     #
     # ipm_tol == stall_tol == 3e-6: ONE production tolerance, 3.3x margin
     # under bench.py's 1e-5 health gate.  The status-0 gate and the
     # escalation stop target must agree, or mid-mission solves stopped
     # at 3e-6 report status 1 against a 5e-7 gate they were never asked
-    # to meet (observed: status0_frac 0.66 with split tolerances).
-    # Chasing the 5e-7 f32 floor instead costs 24% of headline for zero
-    # gate benefit (docs/PERF.md "Mission-length convergence").
+    # to meet.
     return SolverConfig(
         engine="lane",
         ipm_iters=4,
@@ -157,8 +154,7 @@ def production_engine(platform: Optional[str] = None) -> SolverConfig:
         extra_iters=24,
         stall_tol=3e-6,
         mu0="auto",
-        riccati="pallas" if on_tpu else "lax",
-        linearize="pallas" if on_tpu else "lax",
+        riccati=PRESET_RICCATI[platform],
         centering="adaptive",
     )
 

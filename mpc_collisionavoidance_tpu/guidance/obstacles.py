@@ -14,7 +14,7 @@ Re-implements two reference components as pure JAX:
   radius -> ROS_WARN :321-326), and pad unused solver slots with the
   far-away sentinel (`initializeObstacles` :365-376).
 
-TPU-first differences:
+Device-program differences:
 - the world field is a fixed-capacity (M, 3) table (X, Y, R) + validity
   mask — variable-length ROS messages become masked lanes;
 - `std::sort` becomes `jax.lax.top_k` over negated distances (selection,

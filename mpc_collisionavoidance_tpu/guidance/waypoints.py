@@ -7,7 +7,7 @@ fixed-shape, data-dependent-branch-free JAX so a whole *fleet* of missions
 batches under `vmap`:
 
 - waypoints are a fixed-capacity (MAX_WP, 2) table plus a live count `n_wp`
-  (the TPU analog of the variable-length Float32MultiArray topic);
+  (the device-program analog of the variable-length Float32MultiArray topic);
 - the current segment index ``k`` (reference member ``k``, segments are
   (wp[k-1] -> wp[k])), the carried heading-error command memory
   ``past_psied`` (reference :593) and mission activity are an explicit
@@ -76,7 +76,7 @@ def waypoint_manager(state: MissionState, waypoints, n_wp, nedx, nedy):
 
     All branches are `jnp.where` selections: the solver downstream always
     runs; inactive missions just mask the commands, which is the
-    compiled-once TPU replacement for the node's early return (:486-490).
+    compiled-once replacement for the node's early return (:486-490).
     """
     wp = jnp.asarray(waypoints)
     n_wp = jnp.asarray(n_wp, jnp.int32)

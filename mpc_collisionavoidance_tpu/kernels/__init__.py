@@ -1,11 +1,12 @@
-"""Pallas TPU kernels for the solver hot path (SURVEY.md section 7, layer 4).
+"""Hand-written kernels for the solver hot path (SURVEY.md section 7,
+layer 4).
 
 The reference's speed-of-light layer is BLASFEO's cache-tiled small-matrix
-kernels inside HPIPM's Riccati recursion (SURVEY.md N2/N3).  The TPU
-equivalent is not a faster 8x8 factorization — it is removing the XLA
-per-op dispatch overhead of the 100-stage sequential sweep by fusing the
-entire backward+forward Riccati recursion for a 128-lane block into ONE
-Pallas program whose working set lives in VMEM.
+kernels inside HPIPM's Riccati recursion (SURVEY.md N2/N3).  Here the
+equivalent is not a faster 8x8 factorization — it is removing the per-step
+launch overhead of the 100-stage sequential sweep by running the entire
+backward+forward Riccati recursion for a group of lanes in ONE Pallas
+(Triton) program whose working set lives in registers.
 """
 
 from mpc_collisionavoidance_tpu.kernels.riccati_pallas import (  # noqa: F401

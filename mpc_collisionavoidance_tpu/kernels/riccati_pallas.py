@@ -1,26 +1,44 @@
-"""Fused Riccati LQR sweep as a single Pallas TPU kernel.
+"""Fused Riccati LQR sweep as one Pallas kernel for NVIDIA GPUs (Triton).
 
-Drop-in replacement for `ops.riccati_lanes.lqr_solve_lanes`: identical math
-(backward Riccati factor/solve + forward rollout), but the whole recursion
-over N stages runs inside ONE kernel program per 128-lane block, with the
-entire stage-structured QP resident in VMEM.
+Drop-in replacement for `ops.riccati_lanes.lqr_solve_lanes`: the same
+backward Riccati factor/solve and forward rollout, but the whole recursion
+over the N stages runs inside ONE kernel program per group of lanes.
 
-Why this wins over the lax.scan version: the scan emits ~40 small HLO ops
-per stage per sweep; at N = 100 stages that is thousands of sequential
-dispatches on (8, 8, L) operands whose per-op overhead dwarfs the
-arithmetic (the arithmetic is ~100 FLOPs/lane/stage).  Here the stage loop
-is a `fori_loop` INSIDE the kernel: no dispatch overhead, no HBM round
-trips for the carry, full-width VPU lanes throughout — the same argument
-BLASFEO makes for the reference on CPU caches (SURVEY.md N3), transplanted
-to VMEM.
+Why: the `lax.scan` version is a chain of 2N dependent scan steps per call
+(N = 100 at the flagship), each of them several small XLA kernels over
+(nx, nx, L) operands, so the per-step launch and loop overhead dwarfs the
+~100 FLOPs per lane per stage.  Here the stage loops are `fori_loop`s
+INSIDE the kernel.
 
-VMEM budget: a 128-lane block of the flagship QP (nx = 8, nu = 1,
-N = 100) is ~8.3 MB of inputs (double-buffered by the pipeline: ~17 MB)
-+ ~1 MB outputs/scratch.  That exceeds the compiler's default 16 MB
-scoped-VMEM limit but sits comfortably inside the v5e core's 128 MB VMEM,
-so the call raises `vmem_limit_bytes` to the block's actual need; the
-nx = 14 full hull at N = 100 (~47 MB double-buffered) also fits (see
-`fits_vmem`).
+Work split and storage:
+
+- one program owns LANE_BLOCK = 32 lanes, one lane per thread of one
+  warp; programs run in parallel on the SMs and share nothing.  On an
+  H100 one warp per program beat 64 and 128 lanes at L = 512 and 4096
+  (more programs, more SMs busy);
+- the tiny state dimensions are unrolled at trace time (the idiom of
+  `ops/lanes.py`): P, p and the per-stage temporaries are Python lists of
+  (LANE_BLOCK,) vectors, i.e. registers.  Only the upper triangle of the
+  symmetric P is carried (nx(nx+1)/2 vectors instead of nx^2);
+- each stage's A[s, i, j], B, Q, ... is loaded as one lane vector,
+  coalesced because lanes are minor-most.  Stage and state dims are indexed
+  with scalars, so no dimension needs power-of-two padding;
+- the two nx^3 products of a stage run as loops over one state index
+  (columns of P A, then rank-1 updates of A^T (P A)), with P A staged in a
+  per-lane scratch output.  Each loop body is O(nx^2) code, and the stage
+  loop carries P's triangle and p: nx(nx+3)/2 values per lane;
+- the feedback gains K/kff go to an output that the forward sweep reads
+  back (the Triton route has no scratch memory, so scratch is outputs).
+
+Compile time grows steeply with nx, as the carried triangle does (measured
+on an H100: ~15 s at nx = 8, 6 min 25 s at nx = 14).  A variant with P in
+scratch and O(nx) loop bodies compiled in 43 s at nx = 14, but its sweep
+was slower than the plain `lax` sweep's there and 2.7x slower than this
+kernel's at nx = 8.  So the production preset (`riccati="auto"`) runs this
+kernel up to `KERNEL_MAX_NX` and the `lax` sweep above it.
+
+Interpret mode (`interpret=True`) runs the same kernel on the CPU; it is
+reachable only through this wrapper's argument, for tests.
 """
 
 import functools
@@ -28,9 +46,12 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-LANE_BLOCK = 128
+#: lanes per program: one warp, one lane per thread (module doc)
+LANE_BLOCK = 32
+#: widest state the production preset runs this kernel at (module doc)
+KERNEL_MAX_NX = 8
 
 
 def pad_lanes(x, target_l):
@@ -40,8 +61,8 @@ def pad_lanes(x, target_l):
     well-conditioned — a zero-padded QP has singular R blocks whose
     Cholesky produces NaN lanes; replicating the last real lane gives the
     padding the same central path as a real instance.  All kernel math is
-    lanewise, so padded lanes never contaminate real ones; wrappers slice
-    them off before returning."""
+    lanewise, so padded lanes never contaminate real ones; the wrapper
+    slices them off before returning."""
     L = x.shape[-1]
     if L == target_l:
         return x
@@ -49,234 +70,208 @@ def pad_lanes(x, target_l):
     return jnp.pad(x, pad, mode="edge")
 
 
-def _padded_elems(lead, lane_block=LANE_BLOCK):
-    """VMEM elements of one (lead..., lane_block) f32 array, accounting for
-    TPU tiling: the minor-most pair is tiled (8, 128), so the second-minor
-    dim (lead[-1]) is padded to a multiple of 8 (this is what the logical-
-    shape formula used to miss — at nx=14/nu=2 the padding alone is ~1 MB
-    per block, enough to blow a tight scoped-vmem request)."""
-    import numpy as _np
-
-    lead = tuple(lead)
-    rows = -(-lead[-1] // 8) * 8 if lead else 8
-    return int(_np.prod(lead[:-1], dtype=_np.int64)) * rows * lane_block
+def _sum(terms):
+    """Left-to-right sum of a non-empty sequence of lane vectors (no
+    zero start term, so nothing is added that the compiler must fold)."""
+    terms = iter(terms)
+    acc = next(terms)
+    for t in terms:
+        acc = acc + t
+    return acc
 
 
-def _block_bytes(N, nx, nu, lane_block=LANE_BLOCK):
-    """(input, output+scratch) bytes for one 128-lane block (f32), using
-    the PADDED tile sizes of exactly the arrays the pallas_call passes."""
-    in_leads = [(N, nx, nx), (N, nx, nu), (N, nx), (N + 1, nx, nx),
-                (N, nu, nx), (N, nu, nu), (N + 1, nx), (N, nu), (nx,)]
-    aux_leads = [(N + 1, nx), (N, nu),                  # outputs
-                 (N, nu, nx), (N, nu), (nx, nx), (nx,)]  # scratch
-    inb = sum(_padded_elems(s, lane_block) for s in in_leads) * 4
-    auxb = sum(_padded_elems(s, lane_block) for s in aux_leads) * 4
-    return inb, auxb
+def _chol(H, nu):
+    """Unrolled Cholesky factor of a tiny SPD matrix (nested lists of lane
+    vectors; nu <= 2 in the model zoo)."""
+    Lf = [[None] * nu for _ in range(nu)]
+    for a in range(nu):
+        for b in range(a + 1):
+            acc = H[a][b]
+            for t in range(b):
+                acc = acc - Lf[a][t] * Lf[b][t]
+            Lf[a][b] = jnp.sqrt(acc) if a == b else acc / Lf[b][b]
+    return Lf
 
 
-def _vmem_request(N, nx, nu, lane_block=LANE_BLOCK):
-    """Bytes of scoped VMEM the kernel asks the compiler for: inputs are
-    double-buffered by the Pallas pipeline (2.2x for slack), plus
-    outputs/scratch and 4 MB of compiler headroom."""
-    inb, auxb = _block_bytes(N, nx, nu, lane_block)
-    return int(2.2 * inb + auxb + 4 * 2**20)
+def _chol_solve(Lf, rhs):
+    """Solve (L L^T) x = rhs for a list of lane vectors."""
+    nu = len(Lf)
+    y = [None] * nu
+    for a in range(nu):
+        acc = rhs[a]
+        for t in range(a):
+            acc = acc - Lf[a][t] * y[t]
+        y[a] = acc / Lf[a][a]
+    x = [None] * nu
+    for a in reversed(range(nu)):
+        acc = y[a]
+        for t in range(a + 1, nu):
+            acc = acc - Lf[t][a] * x[t]
+        x[a] = acc / Lf[a][a]
+    return x
 
 
-def fits_vmem(N, nx, nu, lane_block=LANE_BLOCK, budget_bytes=100 * 2**20):
-    """Whether a lane block's QP + scratch fits the VMEM budget.
+def _kernel(A, B, c, Q, S, R, qx, qu, dx0, dx_out, du_out, K_out, k_out,
+            PA_s, Hux_s, Pc_s, *, N, nx, nu):
+    """One lane group: full backward + forward sweep.
 
-    Uses the SAME formula as the per-call CompilerParams request below, so
-    a True verdict guarantees the request is within ~100 MB of the v5e
-    core's 128 MB VMEM (the compiler's 16 MB default scoped limit is
-    raised per-call)."""
-    return _vmem_request(N, nx, nu, lane_block) < budget_bytes
-
-
-def pick_lane_block(N, nx, nu, L):
-    """Widest lane block that divides L and fits VMEM.
-
-    Measured on v5e at the flagship shape (B=512): 128/256/512-lane blocks
-    are throughput-IDENTICAL (4.67/4.82/4.66 ms/tick) — the kernel is
-    VPU-issue-bound (~640 GFLOP/s of its ~0.9 TFLOP/s ceiling), so wider
-    blocks trade grid-serialism for proportionally longer per-op issue,
-    a wash.  Kept for experiments; the default stays LANE_BLOCK=128
-    (smallest VMEM footprint: ~18 MB vs ~72 MB at 512)."""
-    for blk in (1024, 512, 256, 128):
-        if L % blk == 0 and fits_vmem(N, nx, nu, blk):
-            return blk
-    return LANE_BLOCK
-
-
-def _mv(M, v):
-    """(i, k, L) x (k, L) -> (i, L) as broadcast FMA + sum.
-
-    Mosaic's dot_general lowering rejects contractions where one operand
-    has no non-contracting dims (the TPU_DotDimensionNumbersAttr fails to
-    parse an empty dim list), so every contraction in the kernel is spelled
-    as elementwise multiply + axis-sum — identical FLOPs, all VPU."""
-    return jnp.sum(M * v[None, :, :], axis=1)
-
-
-def _mtv(M, v):
-    """(k, i, L) x (k, L) -> (i, L) (transpose matvec)."""
-    return jnp.sum(M * v[:, None, :], axis=0)
-
-
-def _mm(X, Y):
-    """(i, k, L) x (k, j, L) -> (i, j, L)."""
-    return jnp.sum(X[:, :, None, :] * Y[None, :, :, :], axis=1)
-
-
-def _mtm(X, Y):
-    """(k, i, L) x (k, j, L) -> (i, j, L) (transpose matmul)."""
-    return jnp.sum(X[:, :, None, :] * Y[:, None, :, :], axis=0)
-
-
-def _kernel(A, B, c, Q, S, R, qx, qu, dx0, dx_out, du_out, K_s, k_s, P_s,
-            p_s, *, N, nx, nu):
-    """One lane block: full backward + forward sweep in VMEM.
-
-    Refs (leading axis = stage, trailing = LANE_BLOCK lanes):
-      A (N, nx, nx, L)   B (N, nx, nu, L)   c (N, nx, L)
-      Q (N+1, nx, nx, L) S (N, nu, nx, L)   R (N, nu, nu, L)
-      qx (N+1, nx, L)    qu (N, nu, L)      dx0 (nx, L)
-    Outputs: dx_out (N+1, nx, L), du_out (N, nu, L).
-    Scratch: K_s (N, nu, nx, L), k_s (N, nu, L), P_s (nx, nx, L),
-             p_s (nx, L).
+    Every ref is 2-D, (rows, lanes): the wrapper flattens the stage and
+    state dims into rows (row-major), so one load is one row index plus
+    the lane slice.  Row layout per stage s:
+      A (N*nx*nx)  [s, i, j]   B (N*nx*nu)  [s, i, a]   c (N*nx)  [s, i]
+      Q ((N+1)*nx*nx)          S (N*nu*nx)  [s, a, j]   R (N*nu*nu)
+      qx ((N+1)*nx)  qu (N*nu)  dx0 (nx)
+    Outputs: dx_out ((N+1)*nx), du_out (N*nu), the gains K_out (N*nu*nx)
+    and k_out (N*nu) handed to the forward sweep, and per-stage scratch
+    PA_s (nx*nx) = P A, Hux_s (nu*nx), Pc_s (nx) = P c + p.
     """
-    P_s[:] = Q[N]
-    p_s[:] = qx[N]
+    tri = [(i, j) for i in range(nx) for j in range(i, nx)]
+    nxx, nxu, nux, nuu = nx * nx, nx * nu, nu * nx, nu * nu
 
-    def backward(i, _):
+    def backward(i, carry):
+        Pt, p = carry
         s = N - 1 - i
-        As = A[s]; Bs = B[s]                             # (nx, nx|nu, L)
-        P = P_s[:]; p = p_s[:]
-        # PA/PB/Pc via broadcast FMAs (all full-lane VPU ops)
-        PA = _mm(P, As)
-        PB = _mm(P, Bs)
-        Pc_p = _mv(P, c[s]) + p
-        Huu = R[s] + _mtm(Bs, PB)                        # (nu, nu, L)
-        Hux = S[s] + _mtm(Bs, PA)                        # (nu, nx, L)
-        hu = qu[s] + _mtv(Bs, Pc_p)                      # (nu, L)
+        oA, oB, oc, ou = s * nxx, s * nxu, s * nx, s * nu
+        oS, oR, oK = s * nux, s * nuu, s * nux
+        P = [[None] * nx for _ in range(nx)]    # symmetric view of Pt
+        for (r, q), v in zip(tri, Pt):
+            P[r][q] = P[q][r] = v
 
-        # tiny Cholesky of Huu, unrolled (nu <= 2 in the model zoo)
-        Lf = [[None] * nu for _ in range(nu)]
-        for r_ in range(nu):
-            for cc in range(r_ + 1):
-                acc = Huu[r_, cc]
-                for t in range(cc):
-                    acc = acc - Lf[r_][t] * Lf[cc][t]
-                Lf[r_][cc] = jnp.sqrt(acc) if r_ == cc else acc / Lf[cc][cc]
+        Bs = [[B[oB + r * nu + a, :] for a in range(nu)] for r in range(nx)]
+        cs = [c[oc + r, :] for r in range(nx)]
+        PB = [[_sum(P[r][k] * Bs[k][a] for k in range(nx))
+               for a in range(nu)] for r in range(nx)]
+        Pc_p = [_sum(P[r][k] * cs[k] for k in range(nx)) + p[r]
+                for r in range(nx)]
+        for r in range(nx):
+            Pc_s[r, :] = Pc_p[r]
+        Huu = [[R[oR + a * nu + b, :]
+                + _sum(Bs[k][a] * PB[k][b] for k in range(nx))
+                for b in range(nu)] for a in range(nu)]
+        hu = [qu[ou + a, :] + _sum(Bs[k][a] * Pc_p[k] for k in range(nx))
+              for a in range(nu)]
+        Lf = _chol(Huu, nu)
+        kff = _chol_solve(Lf, [-h for h in hu])
+        for a in range(nu):
+            k_out[ou + a, :] = kff[a]
 
-        def solve(rhs_rows):                             # list of (L,) rows
-            y = [None] * nu
-            for r_ in range(nu):
-                acc = rhs_rows[r_]
-                for t in range(r_):
-                    acc = acc - Lf[r_][t] * y[t]
-                y[r_] = acc / Lf[r_][r_]
-            x = [None] * nu
-            for r_ in reversed(range(nu)):
-                acc = y[r_]
-                for t in range(r_ + 1, nu):
-                    acc = acc - Lf[t][r_] * x[t]
-                x[r_] = acc / Lf[r_][r_]
-            return x
+        def gain_column(q, carry):
+            # column q of P A, of Hux = S + B^T P A, and of K = -Huu^-1 Hux
+            Aq = [A[oA + k * nx + q, :] for k in range(nx)]
+            PAq = [_sum(P[r][k] * Aq[k] for k in range(nx))
+                   for r in range(nx)]
+            Huxq = [S[oS + a * nx + q, :]
+                    + _sum(Bs[k][a] * PAq[k] for k in range(nx))
+                    for a in range(nu)]
+            Kq = _chol_solve(Lf, [-h for h in Huxq])
+            for r in range(nx):
+                PA_s[r * nx + q, :] = PAq[r]
+            for a in range(nu):
+                Hux_s[a * nx + q, :] = Huxq[a]
+                K_out[oK + a * nx + q, :] = Kq[a]
+            return carry
 
-        Kcols = []
-        for j in range(nx):
-            Kcols.append(solve([-Hux[r_, j] for r_ in range(nu)]))
-        K = jnp.stack([jnp.stack([Kcols[j][r_] for j in range(nx)])
-                       for r_ in range(nu)])             # (nu, nx, L)
-        kff = jnp.stack(solve([-hu[r_] for r_ in range(nu)]))  # (nu, L)
+        jax.lax.fori_loop(0, nx, gain_column, 0)
 
-        K_s[s] = K
-        k_s[s] = kff
-        Pn = Q[s] + _mtm(As, PA) + _mtm(Hux, K)
-        P_s[:] = 0.5 * (Pn + jnp.swapaxes(Pn, 0, 1))
-        p_s[:] = qx[s] + _mtv(As, Pc_p) + _mtv(Hux, kff)
-        return 0
+        def cost_row(k, carry):
+            # rank-1 updates by row k of A: P_new += A_k^T (P A)_k and
+            # p_new += A_k^T (P c + p)_k
+            Pn, pn = carry
+            Ak = [A[oA + k * nx + r, :] for r in range(nx)]
+            PAk = [PA_s[k * nx + q, :] for q in range(nx)]
+            Pc_k = Pc_s[k, :]
+            return ([v + Ak[r] * PAk[q] for (r, q), v in zip(tri, Pn)],
+                    [v + Ak[r] * Pc_k for r, v in enumerate(pn)])
 
-    jax.lax.fori_loop(0, N, backward, 0)
+        Hux = [[Hux_s[a * nx + r, :] for r in range(nx)] for a in range(nu)]
+        K = [[K_out[oK + a * nx + r, :] for r in range(nx)]
+             for a in range(nu)]
+        Pn0 = [Q[oA + r * nx + q, :]
+               + _sum(Hux[a][r] * K[a][q] for a in range(nu))
+               for r, q in tri]
+        pn0 = [qx[oc + r, :] + _sum(Hux[a][r] * kff[a] for a in range(nu))
+               for r in range(nx)]
+        return jax.lax.fori_loop(0, nx, cost_row, (Pn0, pn0))
 
-    dx_out[0] = dx0[:]
+    init = ([Q[N * nxx + i * nx + j, :] for i, j in tri],
+            [qx[N * nx + r, :] for r in range(nx)])
+    jax.lax.fori_loop(0, N, backward, init)
 
-    def forward(s, _):
-        dx = dx_out[s]
-        du = _mv(K_s[s], dx) + k_s[s]
-        du_out[s] = du
-        dx_out[s + 1] = _mv(A[s], dx) + _mv(B[s], du) + c[s]
-        return 0
+    dx_init = [dx0[r, :] for r in range(nx)]
+    for r in range(nx):
+        dx_out[r, :] = dx_init[r]
 
-    jax.lax.fori_loop(0, N, forward, 0)
+    def forward(s, dx):
+        oA, oB, oc, ou, oK = s * nxx, s * nxu, s * nx, s * nu, s * nux
+        du = [_sum(K_out[oK + a * nx + q, :] * dx[q] for q in range(nx))
+              + k_out[ou + a, :] for a in range(nu)]
+        for a in range(nu):
+            du_out[ou + a, :] = du[a]
+
+        def a_column(q, acc):
+            # acc += A[:, q] * dx[q], dx[q] read back from dx_out
+            dxq = dx_out[oc + q, :]
+            return [v + A[oA + r * nx + q, :] * dxq
+                    for r, v in enumerate(acc)]
+
+        acc0 = [c[oc + r, :] + _sum(B[oB + r * nu + a, :] * du[a]
+                                    for a in range(nu))
+                for r in range(nx)]
+        dxn = jax.lax.fori_loop(0, nx, a_column, acc0)
+        for r in range(nx):
+            dx_out[oc + nx + r, :] = dxn[r]
+        return dxn
+
+    jax.lax.fori_loop(0, N, forward, dx_init)
 
 
-@functools.partial(jax.jit, static_argnames=("interpret", "lane_block"))
-def lqr_solve_lanes_pallas(d, interpret: bool = False, lane_block=None):
-    """Pallas-fused equivalent of `ops.riccati_lanes.lqr_solve_lanes`.
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def lqr_solve_lanes_pallas(d, interpret: bool = False):
+    """Kernel equivalent of `ops.riccati_lanes.lqr_solve_lanes`.
 
-    `d` is an `ops.riccati_lanes.LaneLQR`; ANY lane count L >= 1 is
-    accepted — lanes are padded internally (edge mode) to a multiple of
-    the block and sliced back, so the single-vehicle B=1 real-time path
-    runs on the same kernel as the fleet path (one 128-lane block costs
-    the same as one lane: the VPU is 128 wide either way).  `lane_block`
-    widens the per-grid-step block (measured a wash on v5e, see
-    `pick_lane_block`); None keeps the 128-lane default.  Returns
-    (dx (N+1, nx, L), du (N, nu, L)).
+    `d` is an `ops.riccati_lanes.LaneLQR`.  ANY lane count L >= 1 is
+    accepted: lanes are padded (edge mode) to a multiple of LANE_BLOCK and
+    sliced back, so the single-vehicle B=1 path runs the same kernel as
+    fleet batches.  Returns (dx (N+1, nx, L),
+    du (N, nu, L)).
     """
     N, nx, nu, L = d.B.shape[0], d.A.shape[1], d.B.shape[2], d.B.shape[-1]
-    blk_l = lane_block or LANE_BLOCK
-    Lp = -(-L // blk_l) * blk_l
+    blk = LANE_BLOCK
+    Lp = -(-L // blk) * blk
     if Lp != L:
         d = jax.tree.map(lambda x: pad_lanes(x, Lp), d)
     dtype = d.A.dtype
-    grid = (Lp // blk_l,)
+    # (lead..., L) -> (rows, L): a free reshape, lanes stay minor-most
+    rows = jax.tree.map(lambda x: x.reshape(-1, Lp), d)
 
-    def lane_spec(*lead):
-        # block = full stage/row dims, one lane-block slice
-        blk = tuple(lead) + (blk_l,)
-        nlead = len(lead)
-        return pl.BlockSpec(blk, lambda i: (0,) * nlead + (i,),
-                            memory_space=pltpu.VMEM)
+    def block(x):
+        return pl.BlockSpec((x.shape[0], blk), lambda i: (0, i))
 
+    out_rows = [(N + 1) * nx,      # dx
+                N * nu,            # du
+                N * nu * nx,       # K (forward-sweep gains)
+                N * nu,            # kff
+                nx * nx,           # P A of the current stage (scratch)
+                nu * nx,           # Hux of the current stage (scratch)
+                nx]                # P c + p of the current stage (scratch)
+    inputs = (rows.A, rows.B, rows.c, rows.Q, rows.S, rows.R, rows.qx,
+              rows.qu, rows.dx0)
     kernel = functools.partial(_kernel, N=N, nx=nx, nu=nu)
-    dx, du = pl.pallas_call(
+    dx, du, *_ = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[
-            lane_spec(N, nx, nx),      # A
-            lane_spec(N, nx, nu),      # B
-            lane_spec(N, nx),          # c
-            lane_spec(N + 1, nx, nx),  # Q
-            lane_spec(N, nu, nx),      # S
-            lane_spec(N, nu, nu),      # R
-            lane_spec(N + 1, nx),      # qx
-            lane_spec(N, nu),          # qu
-            lane_spec(nx),             # dx0
-        ],
-        out_specs=[
-            lane_spec(N + 1, nx),      # dx
-            lane_spec(N, nu),          # du
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((N + 1, nx, Lp), dtype),
-            jax.ShapeDtypeStruct((N, nu, Lp), dtype),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((N, nu, nx, blk_l), dtype),   # K
-            pltpu.VMEM((N, nu, blk_l), dtype),       # kff
-            pltpu.VMEM((nx, nx, blk_l), dtype),      # P carry
-            pltpu.VMEM((nx, blk_l), dtype),          # p carry
-        ],
-        # the compiler's default scoped-VMEM limit is 16 MB; the flagship
-        # block is ~18 MB at 128 lanes (~72 MB at the default 512) with
-        # double-buffered inputs, well within the v5e core's 128 MB VMEM,
-        # so raise the cap to what this block needs
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=min(_vmem_request(N, nx, nu, blk_l),
-                                 100 * 2**20)),
+        grid=(Lp // blk,),
+        in_specs=[block(x) for x in inputs],
+        out_specs=[pl.BlockSpec((n, blk), lambda i: (0, i))
+                   for n in out_rows],
+        out_shape=[jax.ShapeDtypeStruct((n, Lp), dtype) for n in out_rows],
+        compiler_params=pltriton.CompilerParams(
+            num_warps=1, num_stages=1),
+        backend="triton",
         interpret=interpret,
-    )(d.A, d.B, d.c, d.Q, d.S, d.R, d.qx, d.qu, d.dx0)
+        name="riccati_sweep",
+    )(*inputs)
+    dx = dx.reshape(N + 1, nx, Lp)
+    du = du.reshape(N, nu, Lp)
     if Lp != L:
         dx, du = dx[..., :L], du[..., :L]
     return dx, du

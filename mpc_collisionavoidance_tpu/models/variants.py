@@ -6,9 +6,9 @@ mirroring the information content of the reference's
 bounds, nonlinear distance constraints, default x0) — with file:line citations
 in each docstring so parity can be checked against the CasADi originals.
 
-Design notes (TPU-first):
+Design notes (accelerator-first):
 - dynamics are scalar `jnp` expressions over unpacked state components; XLA
-  fuses them into a handful of VPU ops, and `jax.jacfwd` over the RK4 step
+  fuses them into a handful of elementwise kernels, and `jax.jacfwd` over the RK4 step
   provides the exact discrete sensitivities the reference obtains from
   CasADi-generated VDE C code;
 - obstacle tables enter as flat parameter vectors p = (ox1,oy1,...,ox8,oy8)
@@ -22,7 +22,6 @@ import jax.numpy as jnp
 
 from mpc_collisionavoidance_tpu.models import hydro
 from mpc_collisionavoidance_tpu.models.base import Model
-from mpc_collisionavoidance_tpu.ops.kmath import atan2
 
 INF = 1e12  # stand-in for +inf bounds; kept finite for IPM masking logic
 
@@ -164,7 +163,7 @@ def _pf_dynamics(c):
         psi, _s, _c, u, v, r, _ye, _x1, _y1, ak, _nx, _ny, tport, tstbd = x
         tu, tr = hydro.thrust_map(tport, tstbd, c)
         du, dv, dr = hydro.uvr_dot(u, v, r, tu, tr)
-        beta = atan2(v, u + 0.001)  # kmath: exact in XLA, poly in kernels
+        beta = jnp.arctan2(v, u + 0.001)
         chi = psi + beta
         xned_dot = u * jnp.cos(psi) - v * jnp.sin(psi)
         yned_dot = u * jnp.sin(psi) + v * jnp.cos(psi)
@@ -323,7 +322,7 @@ def usv_guidance3() -> Model:
 
     def f(x, u_ctl, p):
         _nx, _ny, psi, _s, _c, u, v, r, _ye, ak, rd = x
-        beta = atan2(v, u + 0.001)  # kmath: exact in XLA, poly in kernels
+        beta = jnp.arctan2(v, u + 0.001)
         chi = psi + beta
         xned_dot = u * jnp.cos(psi) - v * jnp.sin(psi)
         yned_dot = u * jnp.sin(psi) + v * jnp.cos(psi)
@@ -360,7 +359,7 @@ def usv_guidance4() -> Model:
 
     def f(x, u_ctl, p):
         u, v, _ye, chie = x
-        beta = atan2(v, u + 0.001)  # kmath: exact in XLA, poly in kernels
+        beta = jnp.arctan2(v, u + 0.001)
         psie = chie - beta
         return jnp.stack([
             jnp.zeros_like(u),
@@ -387,7 +386,7 @@ def usv_guidance5() -> Model:
 
     def f(x, u_ctl, p):
         u, v, _ye, chie, psied = x
-        beta = atan2(v, u + 0.001)  # kmath: exact in XLA, poly in kernels
+        beta = jnp.arctan2(v, u + 0.001)
         psie = chie - beta
         return jnp.stack([
             jnp.zeros_like(u),
@@ -416,7 +415,7 @@ def usv_guidance_ca() -> Model:
 
     def f(x, u_ctl, p):
         u, v, _ye, chie, psied, _xn, _yn, psi, psieddot = x
-        beta = atan2(v, u + 0.001)  # kmath: exact in XLA, poly in kernels
+        beta = jnp.arctan2(v, u + 0.001)
         psie = chie - beta
         return jnp.stack([
             jnp.zeros_like(u),
@@ -461,7 +460,7 @@ def usv_guidance_ca1() -> Model:
 
     def f(x, u_ctl, p):
         u, v, _ye, chie, psied, _xn, _yn, psi = x
-        beta = atan2(v, u + 0.001)  # kmath: exact in XLA, poly in kernels
+        beta = jnp.arctan2(v, u + 0.001)
         psie = chie - beta
         psie_rate = (psied - psie) / T1
         return jnp.stack([

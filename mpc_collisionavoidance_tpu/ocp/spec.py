@@ -7,7 +7,7 @@ selection matrices and weights, box bounds, nonlinear constraint softening
 (zl/Zl/zu/Zu slack penalties with lsh/ush slack bounds), horizon and
 discretization — as a plain frozen dataclass of numpy arrays.  Specs are
 static: they are closed over at `jax.jit` trace time, so every shape and
-weight is a compile-time constant on TPU.
+weight is a compile-time constant of the device program.
 
 acados semantics faithfully reproduced here:
 

@@ -1,6 +1,6 @@
 """Full condensing: eliminate the state trajectory from a stage QP.
 
-The TPU-native counterpart of acados' FULL_CONDENSING path (the qpOASES
+The accelerator-native counterpart of acados' FULL_CONDENSING path (the qpOASES
 alternative the reference keeps one line away from HPIPM, reference
 scripts/usv_guidance_ca1/acados_settings.py:189 — commented
 ``FULL_CONDENSING_QPOASES``; qpOASES itself is component N4 in SURVEY.md
@@ -16,7 +16,7 @@ vector w = vec(du) in R^{N*nu}:
 with M lower block-triangular (the discrete-time impulse response of the
 linearized plant) and m the free response from (dx0, c).  All equality
 constraints vanish; the result is a dense inequality-constrained QP whose
-Hessian is a single (N*nu, N*nu) matrix — exactly the shape the MXU wants.
+Hessian is a single (N*nu, N*nu) matrix — a shape dense GEMM kernels suit.
 The propagation of M is a `lax.scan` of (nx,nx)@(nx,N*nu) matmuls, one per
 stage, so XLA sees N large fused GEMMs instead of the reference's per-core
 BLASFEO panel kernels.

@@ -4,10 +4,10 @@ The reference solves its QPs with `PARTIAL_CONDENSING_HPIPM`
 (scripts/usv_guidance_ca1/acados_settings.py:190): groups of consecutive
 shooting intervals are condensed into macro-stages before the Riccati IPM,
 trading a shorter (better-latency) recursion for denser per-stage blocks.
-On TPU that trade is MORE valuable than on CPU: the Riccati sweep is 2N
+On an accelerator that trade is MORE valuable than on CPU: the Riccati sweep is 2N
 *sequential* dependent small ops whose dispatch latency dominates their
 arithmetic (docs/PERF.md bound #2), while the extra dense-block FLOPs are
-full-width VPU work the lane layout is already good at.
+elementwise batch work the lane layout is already good at.
 
 Given the full-resolution :class:`LaneQP` built by `solver/batch.py`
 (static 2-D cost blocks, state-only constraint rows) and a group size M

@@ -6,14 +6,14 @@ and selectable as the commented ``FULL_CONDENSING_QPOASES`` at
 scripts/usv_guidance_ca1/acados_settings.py:189).  qpOASES is an online
 active-set method; active-set working-set updates are data-dependent control
 flow, which is exactly what a traced XLA program cannot express without
-recompilation.  The TPU-idiomatic engine with the same role — an independent
+recompilation.  The accelerator-idiomatic engine with the same role — an independent
 second QP path over the *condensed* problem, useful for cross-checking the
 stagewise Riccati engine and for problems with short horizons — is a dense
 primal-dual interior-point method:
 
 - condensing (ops/condense.py) removes every equality constraint, so each
   IPM iteration reduces to ONE dense symmetric solve of size (N*nu, N*nu),
-  a single MXU-shaped Cholesky factorization instead of a Riccati sweep;
+  a single dense Cholesky factorization instead of a Riccati sweep;
 - soft-constraint slacks are eliminated analytically with the same
   zl/Zl/lsh/ush semantics as ops/ipm.py, so the two engines solve literally
   the same KKT system and agree to solver tolerance (tests/test_dense_qp.py);

@@ -1,5 +1,5 @@
 """Primal-dual interior-point method for stage-structured QPs with soft
-constraints — the TPU-native role of HPIPM (reference qp_solver
+constraints — the accelerator-native role of HPIPM (reference qp_solver
 "PARTIAL_CONDENSING_HPIPM", scripts/usv_guidance_ca1/acados_settings.py:190).
 
 QP form (per SQP iteration, all quantities from linearization at the current

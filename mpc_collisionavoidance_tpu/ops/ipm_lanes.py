@@ -5,7 +5,7 @@ path-following with slack/dual elimination, one Riccati sweep per iteration,
 fraction-to-boundary, convergence freeze — but:
 
 - the instance batch rides the minor-most lane axis L of every tensor, so
-  all scalar row arithmetic is full-width VPU work;
+  all scalar row arithmetic is elementwise over the batch;
 - constraint structure is exploited HPIPM-style instead of generic G rows:
   control/state boxes contribute DIAGONAL Hessian terms (no gram products),
   only the nonlinear h rows form rank-r grams;
@@ -23,6 +23,11 @@ import numpy as np
 
 from mpc_collisionavoidance_tpu.ops import lanes as ln
 from mpc_collisionavoidance_tpu.ops.riccati_lanes import LaneLQR, lqr_solve_lanes
+
+
+#: f32 products run at full precision (a GPU may otherwise take TF32; the
+#: production tolerance sits only 10x above the float32 gap floor)
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class LaneQP(NamedTuple):
@@ -91,7 +96,6 @@ def ipm_solve_lanes(qp: LaneQP,
                     tol: float = 1e-7,
                     mu0: float = 1.0,
                     riccati: str = "lax",
-                    fused_static=None,
                     centering: str = "fixed",
                     extra_iters: int = 0,
                     stall_tol: float = None,
@@ -126,48 +130,20 @@ def ipm_solve_lanes(qp: LaneQP,
     idxbu = tuple(int(i) for i in idxbu)
     idxbx = tuple(int(i) for i in idxbx)
 
-    if riccati.startswith("fused"):
-        if extra_iters:
-            raise ValueError(
-                "stall escalation (extra_iters > 0) is not available in "
-                "the fused whole-IPM kernel (fixed iteration baking); use "
-                "riccati='lax'/'pallas'")
-        if qp.Dh is not None or qp.Ds is not None or qp.Qc.ndim == 4:
-            raise ValueError(
-                "the fused whole-IPM kernel does not support control-"
-                "coupled rows / stage-varying cost (partially condensed "
-                "QPs); use riccati='lax'/'pallas' with condense > 1")
-        # whole-IPM Pallas kernel: QP + iterates resident in VMEM for all
-        # `iters` iterations (kernels/ipm_pallas.py); this lax-level body
-        # is bypassed entirely
-        from mpc_collisionavoidance_tpu.kernels.ipm_pallas import (
-            fused_ipm_lanes)
-        dx, du, gap, eq_res = fused_ipm_lanes(
-            qp, idxbu, idxbx, iters=iters, tau=tau, sigma=sigma, mu0=mu0,
-            interpret=riccati == "fused_interpret", static=fused_static)
-        finite = (jnp.isfinite(gap) & jnp.isfinite(eq_res)
-                  & jnp.all(jnp.isfinite(dx), axis=(0, 1))
-                  & jnp.all(jnp.isfinite(du), axis=(0, 1)))
-        eff_tol = tol if dtype == jnp.float64 else max(tol, 5e-7)
-        converged = (gap < eff_tol) & (eq_res < 1e3 * eff_tol)
-        status = jnp.where(finite, jnp.where(converged, 0, 1),
-                           2).astype(jnp.int32)
-        return LaneIPMSolution(dx=dx, du=du, gap=gap, eq_res=eq_res,
-                               status=status)
-
-    if riccati.startswith("pallas"):
-        import functools as _ft
-
+    if riccati == "auto":
         from mpc_collisionavoidance_tpu.kernels.riccati_pallas import (
-            lqr_solve_lanes_pallas)
-        riccati_fn = _ft.partial(lqr_solve_lanes_pallas,
-                                 interpret=riccati == "pallas_interpret")
+            KERNEL_MAX_NX)
+        riccati = "pallas" if nx <= KERNEL_MAX_NX else "lax"
+    if riccati == "pallas":
+        from mpc_collisionavoidance_tpu.kernels.riccati_pallas import (
+            lqr_solve_lanes_pallas as riccati_fn)
     elif riccati == "pscan":
         from mpc_collisionavoidance_tpu.ops.riccati_pscan import (
-            lqr_solve_pscan)
-        riccati_fn = lqr_solve_pscan
-    else:
+            lqr_solve_pscan as riccati_fn)
+    elif riccati == "lax":
         riccati_fn = lqr_solve_lanes
+    else:
+        raise ValueError(f"unknown riccati backend '{riccati}'")
 
     def du_sel(du):
         return du[:, np.asarray(idxbu, dtype=np.int64), :] if nbu else du[:, :0, :]
@@ -230,11 +206,9 @@ def ipm_solve_lanes(qp: LaneQP,
         # lower clip 1e-3 (was 1.0): a warm-started RTI QP has a SMALL
         # cost gradient, and restarting its barrier at 1.0 burns ~2
         # iterations just walking mu back down — the production
-        # schedule's single biggest cost (measured on v5e: flat
-        # mu0 1e-3 at base 4 = 288.8k flagship solves/s vs 208k at
-        # mu0 1.0 base 6, identical mission-length convergence;
-        # docs/PERF.md).  Large-weight cold QPs (usv_position_control's
-        # 1e5 costs) still get mu0 ~ 1e3: the clip only floors.
+        # schedule's single biggest cost (docs/PERF.md).  Large-weight
+        # cold QPs (usv_position_control's 1e5 costs) still get
+        # mu0 ~ 1e3: the clip only floors.
         mu0 = jnp.clip(0.01 * g_scale, 1e-3, 1e6)[None, None, :]
     all_l = tuple(mu0 / t for t in all_t)
 
@@ -311,15 +285,20 @@ def ipm_solve_lanes(qp: LaneQP,
             qx_base = qp.qx[:-1] + ln.smv(qp.Qc, dxp) + ln.smtv(qp.Sc, du)
         else:
             qx_base = (qp.qx[:-1]
-                       + jnp.einsum("ij,kjl->kil", qp.Qc, dxp)
-                       + jnp.einsum("ui,kul->kil", qp.Sc, du))
-        qx_N = qp.qx[-1] + jnp.einsum("ij,jl->il", qp.QN, dxN)
+                       + jnp.einsum("ij,kjl->kil", qp.Qc, dxp,
+                                    precision=_HIGHEST)
+                       + jnp.einsum("ui,kul->kil", qp.Sc, du,
+                                    precision=_HIGHEST))
+        qx_N = qp.qx[-1] + jnp.einsum("ij,jl->il", qp.QN, dxN,
+                                    precision=_HIGHEST)
         if qp.Rc.ndim == 4:
             qu_base = qp.qu + ln.smv(qp.Sc, dxp) + ln.smv(qp.Rc, du)
         else:
             qu_base = (qp.qu
-                       + jnp.einsum("ui,kil->kul", qp.Sc, dxp)
-                       + jnp.einsum("uv,kvl->kul", qp.Rc, du))
+                       + jnp.einsum("ui,kil->kul", qp.Sc, dxp,
+                                    precision=_HIGHEST)
+                       + jnp.einsum("uv,kvl->kul", qp.Rc, du,
+                                    precision=_HIGHEST))
         cbar = ln.smv(qp.A, dxp) + ln.smv(qp.B, du) + qp.c - dx[1:]
         ddx0 = qp.dx0 - dx[0]
 

@@ -1,16 +1,15 @@
 """Lane-batched small-matrix algebra.
 
 The OCP stage matrices are tiny (nx <= 14, nu <= 2); batching thousands of
-instances is where the TPU throughput lives.  XLA's batched `dot_general`
-on (B, 8, 8) operands lays the 8x8 minor dims onto the (8,128) vector
-registers and wastes 15/16 of every lane; measured on v5e this caps out
-around 30-100 GFLOP/s and *degrades* with batch size.
+instances is where the throughput lives.  A batched `dot_general` on
+(B, 8, 8) operands puts the tiny 8x8 dims on the minor axes, where vector
+units and matrix units are mostly idle.
 
 The lane layout used here instead keeps the INSTANCE axis minor-most —
-tensors are (m, n, L) with L = batch on the 128-wide lane dimension — and
+tensors are (m, n, L) with L = batch on the minor (lane) dimension — and
 expresses every small matmul as an unrolled broadcast-multiply-reduce over
-the tiny dims, so each FMA is a full-width VPU op over L lanes (measured
-~0.9 TFLOP/s at L = 64k, a ~27x win).
+the tiny dims, so each FMA is one elementwise op over L lanes, coalesced
+in memory.
 
 All helpers below follow that convention; loops over tiny static dims are
 Python-level and unroll at trace time.

@@ -1,6 +1,6 @@
 """Stage-wise Riccati factorization/solve as `lax.scan`.
 
-This is the TPU-native replacement for HPIPM's Riccati-recursion KKT solver
+This is the accelerator-native replacement for HPIPM's Riccati-recursion KKT solver
 (reference solver option PARTIAL_CONDENSING_HPIPM, reference
 scripts/usv_guidance_ca1/acados_settings.py:190): each interior-point
 iteration reduces to one equality-constrained LQR solve
@@ -12,11 +12,11 @@ which we solve with a backward gain recursion and a forward rollout, both
 expressed as `lax.scan` over the horizon so XLA compiles a single fused loop.
 Batching over scenario instances is done by `jax.vmap` outside — the scan
 body then operates on (B, nx, nx) tensors and XLA maps the small matmuls
-onto the VPU/MXU.
+onto batched kernels.
 
 Dimensions are tiny (nx <= 14), so per-stage cost is dominated by memory
-movement; the design keeps every per-stage tensor in registers/VMEM within
-one fused scan iteration.
+movement; the design keeps every per-stage tensor within one fused scan
+iteration.
 """
 
 from typing import NamedTuple

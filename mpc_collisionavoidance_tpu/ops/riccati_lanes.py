@@ -3,8 +3,9 @@
 Identical math to :func:`mpc_collisionavoidance_tpu.ops.riccati.lqr_solve`
 but every stage tensor carries the instance batch on the minor-most lane
 axis: A (N, nx, nx, L), etc.  The backward/forward sweeps are `lax.scan`s
-whose bodies are unrolled broadcast FMAs over the tiny state dims — full
-VPU lane utilization at any batch size.
+whose bodies are unrolled broadcast FMAs over the tiny state dims —
+elementwise over the batch at any batch size.  This is the plain reference
+of the Triton sweep kernel (kernels/riccati_pallas.py).
 """
 
 from typing import NamedTuple
@@ -59,3 +60,28 @@ def lqr_solve_lanes(d: LaneLQR):
     dx_N, (dxs, dus) = jax.lax.scan(forward, d.dx0, (d.A, d.B, d.c, Ks, kffs))
     dx_all = jnp.concatenate([dxs, dx_N[None]], axis=0)
     return dx_all, dus
+
+
+def random_lane_lqr(N, nx, nu, L, seed=0, dtype=jnp.float32) -> LaneLQR:
+    """A well-posed random stagewise LQR in the lane layout (SPD cost
+    blocks, mildly contractive dynamics), made from `seed`: the shared
+    input of the Riccati parity checks and sweep benchmarks."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def arr(*shape):
+        return jnp.asarray(rng.standard_normal(shape) * 0.3, dtype)
+
+    Qr = rng.standard_normal((N + 1, nx, nx, L)) * 0.2
+    Q = jnp.asarray(np.einsum("nikl,njkl->nijl", Qr, Qr)
+                    + 0.5 * np.eye(nx)[None, :, :, None], dtype)
+    Rr = rng.standard_normal((N, nu, nu, L)) * 0.2
+    R = jnp.asarray(np.einsum("nikl,njkl->nijl", Rr, Rr)
+                    + 0.5 * np.eye(nu)[None, :, :, None], dtype)
+    A = jnp.asarray(0.9 * np.eye(nx)[None, :, :, None]
+                    + 0.05 * rng.standard_normal((N, nx, nx, L)), dtype)
+    return LaneLQR(A=A, B=arr(N, nx, nu, L), c=arr(N, nx, L), Q=Q,
+                   S=arr(N, nu, nx, L) * 0.1, R=R,
+                   qx=arr(N + 1, nx, L), qu=arr(N, nu, L),
+                   dx0=arr(nx, L))

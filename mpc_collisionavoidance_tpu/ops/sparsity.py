@@ -22,14 +22,9 @@ is EXACTLY 0.0 at every sample (a nonzero smooth term vanishing at
 several generic points has measure zero).  The flagship needs only 6 of
 9 dynamics tangents and 2 of 8 constraint tangents.
 
-Measured effect on TPU v5e: the XLA `jax.linearize` path
-(linearize="lax") genuinely skips the pruned passes; the Pallas kernel
-path measured THROUGHPUT-NEUTRAL (166.0k vs 167.0k solves/s at the
-bench defaults) because its one-hot tangents are compile-time constants
-— Mosaic constant-folds the dead multiply-adds, so the dense loop was
-already effectively sparse.  The declarations still cut trace/compile
-size and are the honest statement of model structure, pinned exact in
-tests/test_sparsity.py.
+The lane engine's `jax.linearize` path skips the pruned passes; the
+declarations also cut trace/compile size and are the honest statement of
+model structure, pinned exact in tests/test_sparsity.py.
 """
 
 import functools

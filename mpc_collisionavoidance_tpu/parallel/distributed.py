@@ -1,11 +1,11 @@
 """Multi-host (pod-slice) scale-out helpers.
 
 The reference's only cross-process transport is single-host ROS pub/sub
-(SURVEY.md section 2.3).  The TPU-native scale-out story: each host runs
-this same program, `jax.distributed` wires the DCN control plane, the
-scenario batch axis is sharded over the GLOBAL device set, and the only
-cross-chip traffic is the fleet-metric collectives (psum/pmax over ICI,
-DCN between hosts) from `parallel/sharding.py`.
+(SURVEY.md section 2.3).  The scale-out story here: each host runs this
+same program, `jax.distributed` wires the control plane, the scenario
+batch axis is sharded over the GLOBAL device set, and the only cross-card
+traffic is the fleet-metric collectives (psum/pmax over NVLink within a
+host, the network between hosts) from `parallel/sharding.py`.
 
 Usage on each host of an N-host slice (or under a scheduler that sets
 the standard JAX env vars):
@@ -30,8 +30,9 @@ def init(coordinator_address: Optional[str] = None,
          process_id: Optional[int] = None) -> int:
     """Initialize jax.distributed; safe to call on a single process.
 
-    With no arguments, relies on the standard env autodetection
-    (JAX_COORDINATOR_ADDRESS / slurm / TPU metadata).  Returns the process
+    With no arguments, relies on JAX's cluster autodetection (e.g. slurm);
+    a host that no scheduler describes needs `coordinator_address`
+    (`host:port`), `num_processes` and `process_id`.  Returns the process
     index.  Idempotent.
     """
     global _initialized
@@ -51,8 +52,9 @@ def global_scenario_mesh(axis_name: str = "dp",
     """1-D mesh over every device of every participating process.
 
     The scenario batch is embarrassingly parallel, so one flat axis is the
-    right shape regardless of the physical ICI topology — XLA still routes
-    the psum reductions over ICI within a host/slice and DCN across hosts.
+    right shape regardless of the physical topology — XLA still routes the
+    psum reductions over NVLink within a host and the network across
+    hosts.
 
     `platform` selects the device kind; when None it follows the user's
     `jax_default_device` pin if set (so sessions pinned to CPU get a CPU

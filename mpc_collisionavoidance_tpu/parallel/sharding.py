@@ -2,15 +2,16 @@
 
 The reference runs ONE solve per control tick on one CPU core and its only
 "distributed" mechanism is ROS pub/sub between processes (SURVEY.md
-section 2.3).  Here scale comes from the TPU-native axes:
+section 2.3).  Here scale comes from the device program's own axes:
 
 - on-chip: `jax.vmap` turns the RTI step into a batched tensor program
   (thousands of independent OCP instances per chip),
 - across chips/hosts: the batch axis is sharded over a 1-D
   `jax.sharding.Mesh` ("dp"); each solve is embarrassingly parallel, so the
   only collectives are fleet-level reductions (convergence voting, global
-  metrics) done with `jax.lax.psum` inside `shard_map` — these ride ICI on a
-  pod slice, and DCN via `jax.distributed` for multi-host meshes.
+  metrics) done with `jax.lax.psum` inside `shard_map` — these ride NVLink
+  within a host, and the network via `jax.distributed` for multi-host
+  meshes.
 
 No NCCL/MPI analog is needed: XLA inserts the collectives from sharding
 annotations (scaling-book recipe: pick a mesh, annotate, let XLA do layout).

@@ -8,7 +8,7 @@ that re-solve the SAME OCP through independent machinery:
   <1e-3 (BASELINE.md) against the converged SQP solver;
 - `kkt`: NLP feasibility/fixed-point reporting for any solver iterate;
 - `acados_oracle`: optional true-acados bridge (activates only where
-  acados_template is installed; the zero-egress TPU image does not ship it).
+  acados_template is installed; the zero-egress build image does not ship it).
 """
 
 from mpc_collisionavoidance_tpu.parity.kkt import kkt_report  # noqa: F401

@@ -1,6 +1,6 @@
 """Optional true-acados oracle bridge.
 
-Where acados_template + CasADi are installed (NOT in the zero-egress TPU
+Where acados_template + CasADi are installed (NOT in the zero-egress build
 image — this module import-gates), build the reference's own AcadosOcp for
 a given OCPSpec and solve it, so control trajectories can be diffed
 directly against the reference solver stack (<1e-3 target, BASELINE.md).

@@ -8,7 +8,7 @@ backend-agnostic op set and bindable to
 
 - **casadi** (`make_casadi_model_fn(name)`) — feeds
   :func:`parity.acados_oracle.build_acados_solver` wherever
-  acados_template + casadi are installed (not in the TPU image), and
+  acados_template + casadi are installed (not in the build image), and
 - **jax.numpy** (`numeric_f(name)` / `numeric_h(name)`) — an independent
   numeric binding that the in-image test suite cross-checks against the
   production JAX models (`models/variants.py`) at random states, so a

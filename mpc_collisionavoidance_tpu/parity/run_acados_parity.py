@@ -17,7 +17,7 @@ For each variant this
 3. reports the max control/state deviation over the run against the
    BASELINE.md target of <1e-3 control-trajectory deviation.
 
-Where acados is NOT installed (the TPU image), the runner exits with a
+Where acados is NOT installed (the build image), the runner exits with a
 clear message and rc=2; the transcriptions themselves are still verified
 in-image by tests/test_casadi_models.py, and regression protection comes
 from the committed golden trajectories (tests/test_golden.py).

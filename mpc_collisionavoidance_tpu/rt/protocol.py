@@ -2,7 +2,7 @@
 
 The reference's real-time boundary is the C++ node calling the generated
 `acados_solve()` in-process at 20 Hz (reference
-catkin_ws/src/nmpc_ca/src/nmpc_guidance_ca1.cpp:577).  On TPU the solver
+catkin_ws/src/nmpc_ca/src/nmpc_guidance_ca1.cpp:577).  Here the solver
 lives behind a device runtime, so the native boundary becomes a Unix-domain
 socket speaking fixed-size little-endian frames between a C++ client
 (rt/client/nmpc_rt_client.h) and the serving engine (rt/server.py).  The

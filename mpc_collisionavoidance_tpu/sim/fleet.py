@@ -59,16 +59,14 @@ class FleetMissionEngine:
     """B vehicles, each with its own waypoints and shared obstacle field."""
 
     def __init__(self, spec: OCPSpec, ipm_iters: int = 10,
-                 riccati: str = "lax", linearize: str = "lax",
-                 **solver_kw):
+                 riccati: str = "lax", **solver_kw):
         """Extra `solver_kw` pass through to LaneRTISolver — e.g. the
         production schedule's centering/extra_iters/ipm_tol
         (config.production_engine())."""
         assert spec.model.name == "usv_guidance_ca1"
         self.spec = spec
         self.solver = LaneRTISolver(spec, ipm_iters=ipm_iters,
-                                    riccati=riccati, linearize=linearize,
-                                    **solver_kw)
+                                    riccati=riccati, **solver_kw)
         self._plant = integrators.make_discrete_dynamics(
             spec.model.f, spec.dt, num_steps=4)
 

@@ -1,4 +1,4 @@
-"""Lane-batched SQP-RTI solver — the production TPU throughput path.
+"""Lane-batched SQP-RTI solver — the production throughput path.
 
 Functionally identical to `solver/sqp_rti.RTISolver` (one Gauss-Newton
 linearization + one interior-point QP + full primal step per call, warm
@@ -27,6 +27,12 @@ from mpc_collisionavoidance_tpu.ops.ipm_lanes import (
     LaneQP, ipm_solve_lanes)
 
 
+#: f32 products on the lane path run at full precision: a GPU may otherwise
+#: take TF32 for them, and the 3e-6 production tolerance sits only 10x
+#: above the float32 duality-gap floor
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
 class LaneState(NamedTuple):
     xbar: jnp.ndarray  # (nx, N+1, L)
     ubar: jnp.ndarray  # (nu, N, L)
@@ -52,32 +58,22 @@ def from_lanes(lane):
 class LaneRTISolver:
     def __init__(self, spec: OCPSpec, ipm_iters: int = 12,
                  ipm_tol: float = 1e-7, riccati: str = "lax",
-                 linearize: str = "lax", condense: int = 1,
+                 condense: int = 1,
                  centering: str = "fixed", mu0=1.0,
                  extra_iters: int = 0, stall_tol: float = None):
-        """`riccati`: "lax" (sequential scan), "pallas" (fused VMEM Riccati
-        kernel; any lane count — lanes are padded internally to the
-        128-wide VPU block, so B=1 single-vehicle serving rides the same
-        kernel as fleet batches — THE PRODUCTION BACKEND), "pscan"
-        (associative-scan parallel Riccati, O(log N) depth — see
-        ops/riccati_pscan), or "fused" (the ENTIRE IPM as one Pallas
-        kernel, kernels/ipm_pallas.py — a VALIDATION ARTIFACT and
-        single-executable path, not the production engine: throughput
-        parity with "pallas", fixed-sigma centering only, no partial
-        condensing, ~9 min one-time Mosaic compile; see docs/PERF.md).
-
-        `linearize`: "lax" (XLA `jax.linearize` basis passes) or "pallas"
-        (kernels/linearize_pallas.py — the whole RK4 rollout + Jacobian
-        + constraint linearization fused into one VMEM-resident kernel
-        per lane block; requires the model's `f`/`h` to be Mosaic-
-        lowerable, which the whole USV zoo is via ops/kmath.atan2).
+        """`riccati`: "lax" (sequential `lax.scan` sweep), "pallas" (the
+        Triton sweep kernel, kernels/riccati_pallas.py, NVIDIA GPUs; any
+        lane count — lanes are padded internally to the kernel's lane
+        group, so B=1 single-vehicle serving rides the same kernel as
+        fleet batches), "auto" (the kernel up to its KERNEL_MAX_NX
+        states, "lax" above), or "pscan" (associative-scan parallel Riccati,
+        O(log N) depth — see ops/riccati_pscan).
 
         `condense`: partial-condensing group size M (HPIPM's knob, the
         reference's PARTIAL_CONDENSING_HPIPM role): groups of M shooting
         intervals are condensed before the IPM so the sequential Riccati
         chain shrinks from 2N to 2N/M steps (ops/condense_partial.py).
-        1 = no condensing.  Must divide N; incompatible with
-        riccati="fused".
+        1 = no condensing.  Must divide N.
 
         `centering`: "fixed" (constant sigma=0.1 barrier reduction),
         "adaptive" (per-lane Mehrotra-style sigma from the previous
@@ -86,67 +82,45 @@ class LaneRTISolver:
         per iteration sets sigma=(mu_aff/mu)^3 and adds the second-order
         correction — 2 Riccati sweeps per iteration, but far fewer
         iterations on ill-conditioned weights like usv_position_control's
-        1e5 position costs).  Measured on v5e at the flagship shape:
-        adaptive reaches the float32 gap floor in 8 iterations instead of
-        10 (178.5k vs 145.5k solves/s at B=512, converged_frac 1.0 both)
-        — see docs/PERF.md.  Applies to the lax/pallas/pscan Riccati
-        paths; the fused whole-IPM kernel bakes fixed sigma.
+        1e5 position costs).  Adaptive reaches the float32 gap floor in
+        fewer iterations than fixed at the flagship shape (docs/PERF.md).
 
         `extra_iters` / `stall_tol`: per-batch STALL ESCALATION — after
         the fixed `ipm_iters` scan, up to `extra_iters` more IPM
         iterations run in a `lax.while_loop` while any lane's duality
         gap exceeds `stall_tol` (default: the dtype-aware convergence
-        tolerance).  This is how the production schedule stays at 8
-        iterations on easy ticks yet survives the reference's 1000-tick
-        mission (scripts/usv_guidance_ca1/main.py:116) where obstacle
-        rows activate and harden the QPs mid-mission (docs/PERF.md)."""
-        if riccati not in ("lax", "pallas", "pallas_interpret", "pscan",
-                           "fused", "fused_interpret"):
+        tolerance).  This is how the production schedule stays at its
+        base iterations on easy ticks yet survives the reference's
+        1000-tick mission (scripts/usv_guidance_ca1/main.py:116) where
+        obstacle rows activate and harden the QPs mid-mission
+        (docs/PERF.md)."""
+        from mpc_collisionavoidance_tpu.config import RICCATI_BACKENDS
+        if riccati not in RICCATI_BACKENDS:
             raise ValueError(f"unknown riccati backend '{riccati}'")
-        if linearize not in ("lax", "pallas", "pallas_interpret"):
-            raise ValueError(f"unknown linearize backend '{linearize}'")
         if condense < 1 or spec.N % condense != 0:
             raise ValueError(
                 f"condense group size {condense} must divide N={spec.N}")
-        if condense > 1 and riccati.startswith("fused"):
-            raise ValueError("partial condensing is incompatible with the "
-                             "fused whole-IPM kernel (static-cost baking); "
-                             "use riccati='lax' or 'pallas'")
         if centering not in ("fixed", "adaptive", "mehrotra"):
             raise ValueError(f"unknown centering '{centering}'")
-        if centering != "fixed" and riccati.startswith("fused"):
-            raise ValueError(f"{centering} centering is not available in "
-                             "the fused whole-IPM kernel (fixed-sigma "
-                             "baking); use riccati='lax' or 'pallas'")
-        if isinstance(mu0, str) and riccati.startswith("fused"):
-            raise ValueError("mu0='auto' is not available in the fused "
-                             "whole-IPM kernel (scalar mu0 baking); use "
-                             "riccati='lax' or 'pallas'")
-        if extra_iters and riccati.startswith("fused"):
-            raise ValueError("stall escalation (extra_iters > 0) is not "
-                             "available in the fused whole-IPM kernel; "
-                             "use riccati='lax' or 'pallas'")
         self.spec = spec
         self.extra_iters = int(extra_iters)
         self.stall_tol = stall_tol
         self.ipm_iters = ipm_iters
         self.ipm_tol = ipm_tol
         self.riccati = riccati
-        self.linearize = linearize
         self.condense = condense
         self.centering = centering
         # initial barrier weight: 1.0 (historical) or "auto" (per-lane
         # gradient-scaled, ops/ipm_lanes.py)
         self.mu0 = mu0
         m = spec.model
-        # static numpy cost blocks / slack weights: the fused IPM kernel
-        # bakes these in as immediates (under jit the LaneQP fields are
-        # tracers, so they must come from the static spec)
+        # static numpy cost blocks / slack weights, computed once from the
+        # spec and broadcast lazily by the IPM
         Vx = np.asarray(spec.cost.Vx); Vu = np.asarray(spec.cost.Vu)
         W = np.asarray(spec.cost.W)
         Vx_e = np.asarray(spec.cost.Vx_e); W_e = np.asarray(spec.cost.W_e)
         scale = spec.stage_scale
-        self._fused_static = {
+        self._static = {
             "Qc": scale * (Vx.T @ W @ Vx), "QN": Vx_e.T @ W_e @ Vx_e,
             "Sc": scale * (Vu.T @ W @ Vx), "Rc": scale * (Vu.T @ W @ Vu),
         }
@@ -181,7 +155,7 @@ class LaneRTISolver:
         else:
             sbx_rows = np.zeros((0,), dtype=np.int64)
         if zl_parts:
-            self._fused_static.update(
+            self._static.update(
                 zl=np.concatenate(zl_parts), Zl=np.concatenate(Zl_parts),
                 zu=np.concatenate(zu_parts), Zu=np.concatenate(Zu_parts),
                 lsh=np.concatenate(lsh_parts), ush=np.concatenate(ush_parts))
@@ -223,24 +197,10 @@ class LaneRTISolver:
         xs = xbar[:, :-1, :]                               # (nx, N, L)
 
         # ---- dynamics linearization: one trace, nx+nu linear passes ----
-        h_step = spec.dt / spec.integrator_steps
-        kernel_hbar = kernel_C = None
-        if self.linearize.startswith("pallas"):
-            # fused VMEM kernel: rollout + all tangent passes + constraint
-            # linearization in one Pallas program per lane block
-            from mpc_collisionavoidance_tpu.kernels.linearize_pallas import (
-                linearize_lanes_pallas)
-            xn_k, J_k, hbar_k, C_k = linearize_lanes_pallas(
-                xs, ubar, params, f=m.f, h=m.h, dt=spec.dt,
-                integrator_steps=spec.integrator_steps, nh=m.nh,
-                interpret=self.linearize == "pallas_interpret",
-                f_dep=m.f_dep, h_dep=m.h_dep)
-            J = jnp.transpose(J_k, (2, 0, 1, 3))           # (N, nx, nxu, L)
-            x_next = xn_k
-            if m.nh:
-                kernel_hbar = hbar_k                       # (nh, N, L)
-                kernel_C = jnp.transpose(C_k, (2, 0, 1, 3))  # (N, nh, nx, L)
-        else:
+        # (the `linearize` scope names these ops in profiler traces)
+        with jax.named_scope("linearize"):
+            h_step = spec.dt / spec.integrator_steps
+
             def F(xu):
                 x, u = xu[:nx], xu[nx:]
                 for _ in range(spec.integrator_steps):
@@ -265,13 +225,13 @@ class LaneRTISolver:
                 basis = jnp.broadcast_to(
                     jnp.eye(nxu, dtype=dtype)[:, :, None, None],
                     (nxu,) + xu.shape)
-                J = jax.vmap(lin)(basis)                   # (nxu, nx, N, L)
+                J = jax.vmap(lin)(basis)               # (nxu, nx, N, L)
             else:
                 di = np.asarray(f_dep, dtype=np.int64)
                 basis = jnp.broadcast_to(
                     jnp.eye(nxu, dtype=dtype)[di][:, :, None, None],
                     (len(f_dep),) + xu.shape)
-                Jd = jax.vmap(lin)(basis)                  # (nd, nx, N, L)
+                Jd = jax.vmap(lin)(basis)              # (nd, nx, N, L)
                 J = jnp.broadcast_to(
                     jnp.eye(nxu, nx, dtype=dtype)[:, :, None, None],
                     (nxu, nx) + xu.shape[1:])
@@ -280,14 +240,12 @@ class LaneRTISolver:
         A, Bm = J[:, :, :nx, :], J[:, :, nx:, :]
         c = jnp.moveaxis(x_next - xbar[:, 1:, :], 0, 1)    # (N, nx, L)
 
-        # ---- cost (blocks precomputed once in __init__; the fused IPM
-        # kernel bakes the SAME numpy values, so the two paths cannot
-        # desynchronize) ----
+        # ---- cost (blocks precomputed once in __init__) ----
         Vx = np.asarray(spec.cost.Vx); Vu = np.asarray(spec.cost.Vu)
         W = np.asarray(spec.cost.W)
-        Qc = jnp.asarray(self._fused_static["Qc"], dtype)
-        Rc = jnp.asarray(self._fused_static["Rc"], dtype)
-        Sc = jnp.asarray(self._fused_static["Sc"], dtype)
+        Qc = jnp.asarray(self._static["Qc"], dtype)
+        Rc = jnp.asarray(self._static["Rc"], dtype)
+        Sc = jnp.asarray(self._static["Sc"], dtype)
         M_x = jnp.asarray(scale * (Vx.T @ W), dtype)       # (nx, ny)
         M_u = jnp.asarray(scale * (Vu.T @ W), dtype)       # (nu, ny)
         # runtime stage reference: (ny,) shared or (ny, L) per lane
@@ -298,26 +256,25 @@ class LaneRTISolver:
             yref = jnp.asarray(yref, dtype)
             yref = (yref[:, None, None] if yref.ndim == 1
                     else yref[:, None, :])
-        y = (jnp.tensordot(jnp.asarray(Vx, dtype), xs, axes=[[1], [0]])
-             + jnp.tensordot(jnp.asarray(Vu, dtype), ubar, axes=[[1], [0]])
+        def tdot(a, b):
+            # contract a's last axis with b's first, at full f32 precision
+            return jnp.tensordot(a, b, axes=[[1], [0]], precision=_HIGHEST)
+
+        y = (tdot(jnp.asarray(Vx, dtype), xs)
+             + tdot(jnp.asarray(Vu, dtype), ubar)
              - yref)                                       # (ny, N, L)
-        qx_path = jnp.moveaxis(
-            jnp.tensordot(M_x, y, axes=[[1], [0]]), 0, 1)  # (N, nx, L)
-        qu = jnp.moveaxis(
-            jnp.tensordot(M_u, y, axes=[[1], [0]]), 0, 1)  # (N, nu, L)
+        qx_path = jnp.moveaxis(tdot(M_x, y), 0, 1)         # (N, nx, L)
+        qu = jnp.moveaxis(tdot(M_u, y), 0, 1)              # (N, nu, L)
         Vx_e = np.asarray(spec.cost.Vx_e); W_e = np.asarray(spec.cost.W_e)
-        QN = jnp.asarray(self._fused_static["QN"], dtype)
+        QN = jnp.asarray(self._static["QN"], dtype)
         if yref_e is None:
             yref_e_l = jnp.asarray(spec.cost.yref_e, dtype)[:, None]
         else:
             yref_e_l = jnp.asarray(yref_e, dtype)
             if yref_e_l.ndim == 1:
                 yref_e_l = yref_e_l[:, None]
-        yN = (jnp.tensordot(jnp.asarray(Vx_e, dtype), xbar[:, -1, :],
-                            axes=[[1], [0]])
-              - yref_e_l)
-        qx_N = jnp.tensordot(jnp.asarray(Vx_e.T @ W_e, dtype), yN,
-                             axes=[[1], [0]])              # (nx, L)
+        yN = tdot(jnp.asarray(Vx_e, dtype), xbar[:, -1, :]) - yref_e_l
+        qx_N = tdot(jnp.asarray(Vx_e.T @ W_e, dtype), yN)  # (nx, L)
         qx = jnp.concatenate([qx_path, qx_N[None]], axis=0)
 
         # ---- control box residuals ----
@@ -344,33 +301,29 @@ class LaneRTISolver:
         # ---- nonlinear constraint linearization ----
         nh = m.nh
         if nh:
-            if kernel_C is not None:
-                C = kernel_C                               # (N, nh, nx, L)
-                hbar = jnp.moveaxis(kernel_hbar, 0, 1)     # (N, nh, L)
-            else:
-                def H(xv):
-                    return m.h(xv, params)
+            def H(xv):
+                return m.h(xv, params)
 
-                hbar_l, linh = jax.linearize(H, xs)        # (nh, N, L)
-                h_dep = m.h_dep
-                if h_dep is None or len(h_dep) == nx:
-                    basis_x = jnp.broadcast_to(
-                        jnp.eye(nx, dtype=dtype)[:, :, None, None],
-                        (nx,) + xs.shape)
-                    C = jax.vmap(linh)(basis_x)            # (nx, nh, N, L)
-                else:
-                    # h reads only h_dep coordinates (e.g. the flagship's
-                    # obstacle distances read only xned/yned): skipped
-                    # columns are exact zeros
-                    di = np.asarray(h_dep, dtype=np.int64)
-                    basis_x = jnp.broadcast_to(
-                        jnp.eye(nx, dtype=dtype)[di][:, :, None, None],
-                        (len(h_dep),) + xs.shape)
-                    Cd = jax.vmap(linh)(basis_x)           # (nd, nh, N, L)
-                    C = jnp.zeros((nx, nh) + xs.shape[1:],
-                                  dtype).at[di].set(Cd)
-                C = jnp.transpose(C, (2, 1, 0, 3))         # (N, nh, nx, L)
-                hbar = jnp.moveaxis(hbar_l, 0, 1)          # (N, nh, L)
+            hbar_l, linh = jax.linearize(H, xs)        # (nh, N, L)
+            h_dep = m.h_dep
+            if h_dep is None or len(h_dep) == nx:
+                basis_x = jnp.broadcast_to(
+                    jnp.eye(nx, dtype=dtype)[:, :, None, None],
+                    (nx,) + xs.shape)
+                C = jax.vmap(linh)(basis_x)            # (nx, nh, N, L)
+            else:
+                # h reads only h_dep coordinates (e.g. the flagship's
+                # obstacle distances read only xned/yned): skipped
+                # columns are exact zeros
+                di = np.asarray(h_dep, dtype=np.int64)
+                basis_x = jnp.broadcast_to(
+                    jnp.eye(nx, dtype=dtype)[di][:, :, None, None],
+                    (len(h_dep),) + xs.shape)
+                Cd = jax.vmap(linh)(basis_x)           # (nd, nh, N, L)
+                C = jnp.zeros((nx, nh) + xs.shape[1:],
+                              dtype).at[di].set(Cd)
+            C = jnp.transpose(C, (2, 1, 0, 3))         # (N, nh, nx, L)
+            hbar = jnp.moveaxis(hbar_l, 0, 1)          # (N, nh, L)
             lh_full = (jnp.asarray(m.lh, dtype)[:, None] if lh is None
                        else jnp.asarray(lh, dtype))
             if lh_full.ndim == 1:
@@ -416,13 +369,13 @@ class LaneRTISolver:
             slh = jnp.concatenate([slh, slh_bx], axis=1)
             suh = jnp.concatenate([suh, suh_bx], axis=1)
 
-        if "zl" in self._fused_static:
-            zl = jnp.asarray(self._fused_static["zl"], dtype)[:, None]
-            Zl = jnp.asarray(self._fused_static["Zl"], dtype)[:, None]
-            zu = jnp.asarray(self._fused_static["zu"], dtype)[:, None]
-            Zu = jnp.asarray(self._fused_static["Zu"], dtype)[:, None]
-            lsh = jnp.asarray(self._fused_static["lsh"], dtype)[:, None]
-            ush = jnp.asarray(self._fused_static["ush"], dtype)[:, None]
+        if "zl" in self._static:
+            zl = jnp.asarray(self._static["zl"], dtype)[:, None]
+            Zl = jnp.asarray(self._static["Zl"], dtype)[:, None]
+            zu = jnp.asarray(self._static["zu"], dtype)[:, None]
+            Zu = jnp.asarray(self._static["Zu"], dtype)[:, None]
+            lsh = jnp.asarray(self._static["lsh"], dtype)[:, None]
+            ush = jnp.asarray(self._static["ush"], dtype)[:, None]
         else:
             zl = Zl = zu = Zu = lsh = ush = jnp.zeros((0, 1), dtype)
 
@@ -454,7 +407,6 @@ class LaneRTISolver:
         return ipm_solve_lanes(qp, self.idxbu, self.idxbx,
                                iters=self.ipm_iters, tol=self.ipm_tol,
                                riccati=self.riccati,
-                               fused_static=self._fused_static,
                                centering=self.centering, mu0=self.mu0,
                                extra_iters=self.extra_iters,
                                stall_tol=self.stall_tol)
@@ -518,10 +470,9 @@ class LaneSolverAdapter:
     Single-vehicle surfaces (`cli run`, the guidance controller,
     `sim/closed_loop.py`) were written against the per-instance
     `RTISolver` API — unbatched x0 (nx,), outputs u0 (nu,)/x1 (nx,).
-    This adapter lets them ride the production lane engine (pallas
-    kernels, adaptive centering, stall escalation) unchanged: lanes pad
-    internally to one 128-wide block, so one vehicle costs the same as
-    128 (docs/PERF.md).  Per-stage (N, ny) yref is not supported (the
+    This adapter lets them ride the production lane engine (Riccati
+    kernel, adaptive centering, stall escalation) unchanged: the kernel
+    pads the single lane to one lane group internally.  Per-stage (N, ny) yref is not supported (the
     lane engine broadcasts one reference across stages); pass the 1-D
     (ny,) form.
     """

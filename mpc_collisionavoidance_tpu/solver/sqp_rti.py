@@ -1,4 +1,4 @@
-"""SQP-RTI orchestration: the TPU-native `acados_solve()`.
+"""SQP-RTI orchestration: the accelerator-native `acados_solve()`.
 
 Reproduces the real-time-iteration semantics of the reference solver
 (nlp_solver_type="SQP_RTI" + GAUSS_NEWTON + ERK, reference

@@ -6,7 +6,7 @@ trajectory with obstacle circles after each offline run (reference
 scripts/usv_guidance_ca1/plotFcn.py:100-159).  These helpers produce the
 same views from our sim logs, plus a cascade dashboard covering the
 two-solver pipeline.  Matplotlib is imported lazily with the Agg backend
-so sims on headless TPU hosts can always save figures.
+so sims on headless accelerator hosts can always save figures.
 """
 
 import numpy as np

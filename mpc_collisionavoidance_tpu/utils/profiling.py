@@ -4,7 +4,8 @@ The reference's only instrumentation is wall-clock around each solve with
 a running sum/max printed at exit (reference
 scripts/usv_guidance_ca1/main.py:133-144,197-198).  `SolveTimer` keeps that
 exact surface (avg/max, now plus percentiles and solves/s) and `trace`
-wraps `jax.profiler` for per-kernel TPU timelines the reference never had.
+wraps `jax.profiler` for per-kernel device timelines the reference never
+had.
 """
 
 import contextlib

@@ -11,7 +11,7 @@ module generates a synthetic closed circuit with the same structure —
 uniform arc-length samples of (s, x, y, psi, kappa) — and implements both
 transforms as total, vmappable JAX functions.
 
-TPU notes: the samples are UNIFORM in s, so interpolation is O(1) index
+Device notes: the samples are UNIFORM in s, so interpolation is O(1) index
 arithmetic + gathers (no searchsorted), elementwise over arbitrary batch
 shapes — safe inside the lane engine's (N, L) vectorized dynamics; the
 curvature table is periodic Catmull-Rom, giving a C1 curve like the

@@ -4,7 +4,7 @@ The reference flagship node publishes per-tick rviz markers of every
 perceived obstacle (inflated circle) and its safety band, plus the
 vehicle (reference src/nmpc_ca/src/nmpc_guidance_ca1.cpp:378-414
 ``circleDraw``; the simulator adds obstacle spheres,
-obstacle_sim_node.py:128-158).  TPU-native equivalent, three layers:
+obstacle_sim_node.py:128-158).  The device-native equivalent, three layers:
 
 1. `MarkerFrame` — one tick's worth of safety geometry: vehicle pose +
    boat circle, the top-8 perceived obstacle slots (inflated radius =

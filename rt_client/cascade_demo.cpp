@@ -7,7 +7,7 @@
  * src/nmpc_guidance_ca1.cpp + src/nmpc_low_level.cpp).  This demo is that
  * graph natively: the two C++ nodes (nmpc_guidance_node, the waypoint /
  * obstacle / packing state machine; nmpc_low_level_node, the carried-
- * thrust inner loop) each talk to their OWN TPU serving engine over UDS
+ * thrust inner loop) each talk to their OWN GPU serving engine over UDS
  * — one started with the flagship model, one with --model usv_low_level
  * — and the vehicle is an honest C++ RK4 integration of the true 3-DOF
  * hydrodynamic hull (reference scripts/usv_pf_ca/usv_model.py:61-77,

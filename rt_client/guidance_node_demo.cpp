@@ -4,7 +4,7 @@
  * fake LiDAR (reference catkin_ws/src/simulation/scripts/
  * obstacle_sim_node.py) + the nmpc_guidance_ca1 node (reference
  * src/nmpc_guidance_ca1.cpp) — collapsed into one native process that
- * talks to the TPU serving engine over the UDS boundary:
+ * talks to the GPU serving engine over the UDS boundary:
  *
  *   world obstacle field -> visibility cull + NED->body (fake LiDAR)
  *     -> gn_obstacles intake -> gn_tick (waypoint manager, crab-angle

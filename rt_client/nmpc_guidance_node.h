@@ -8,7 +8,7 @@
  * body2NED :348-363, sentinel fill :365-376), the crab-angle OCP state
  * packing (:495-516) and the command extraction from the stage-1
  * prediction (:583-600) — runs natively here, while the solve itself
- * crosses the nmpc_rt_client UDS boundary to the TPU serving engine
+ * crosses the nmpc_rt_client UDS boundary to the GPU serving engine
  * (the acados_solve() seam of the reference, :577).
  *
  * The same logic exists in JAX (mpc_collisionavoidance_tpu/guidance/) for

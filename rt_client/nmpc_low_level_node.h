@@ -11,7 +11,7 @@
  * carried-thrust memory update (:268-269) and the e_u/e_psi/Tx/Tz
  * telemetry with the c = 0.78 asymmetric thrust map (:273-285).
  *
- * The solve crosses the nmpc_rt_client v2 UDS boundary to the TPU serving
+ * The solve crosses the nmpc_rt_client v2 UDS boundary to the GPU serving
  * engine started as `rt.server --model usv_low_level` (the acados_solve()
  * seam of the reference, :249).  The same logic exists in JAX
  * (mpc_collisionavoidance_tpu/guidance/low_level.py) for fleet-batched

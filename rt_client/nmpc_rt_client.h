@@ -1,9 +1,9 @@
-/* Real-time C++ client for the TPU NMPC serving engine.
+/* Real-time C++ client for the GPU NMPC serving engine.
  *
  * Native counterpart of the reference's node-side solver boundary: where
  * the reference C++ node calls the generated acados_solve() in-process
  * (reference catkin_ws/src/nmpc_ca/src/nmpc_guidance_ca1.cpp:577), a
- * TPU deployment calls nmpc_rt_solve() against the serving engine
+ * GPU deployment calls nmpc_rt_solve() against the serving engine
  * (mpc_collisionavoidance_tpu/rt/server.py) over a Unix-domain socket.
  * Frame layout mirrors rt/protocol.py byte-for-byte (little-endian).
  *

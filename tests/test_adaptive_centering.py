@@ -4,10 +4,10 @@
 schedule with a per-lane heuristic driven by the previous iteration's
 fraction-to-boundary step (ops/ipm_lanes.py).  It is a *convergence-rate*
 knob: the central-path fixed point is unchanged, so at sufficient
-iterations both schedules must land on the same QP solution.  Measured on
-TPU v5e it reaches the float32 gap floor in 8 IPM iterations instead of
-10 at the flagship shape (docs/PERF.md); here we pin exactness and
-convergence on the CPU f64 path.
+iterations both schedules must land on the same QP solution.  It reaches
+the float32 gap floor in fewer IPM iterations than the fixed schedule at
+the flagship shape (docs/PERF.md); here we pin exactness and convergence
+on the CPU f64 path.
 """
 
 import jax
@@ -59,8 +59,8 @@ def test_same_fixed_point_as_fixed_centering():
 def test_adaptive_converges_no_slower():
     """On the flagship QP the adaptive schedule's duality gap at every
     iteration count in the production range is within a small factor of
-    the fixed schedule's (it was measured strictly faster on TPU; here we
-    only pin 'not worse than 10x' to keep the test hardware-agnostic)."""
+    the fixed schedule's (it converges faster at the flagship shape; here
+    we only pin 'not worse than 10x' to keep the test hardware-agnostic)."""
     solver, qp = _flagship_qp()
     for iters in (8, 12, 20):
         gA = np.asarray(ipm_solve_lanes(qp, solver.idxbu, solver.idxbx,
@@ -114,9 +114,10 @@ def test_bad_centering_rejected():
     spec = builders.usv_guidance_ca1(Tf=1.0, N=10)
     with pytest.raises(ValueError, match="centering"):
         LaneRTISolver(spec, centering="newton-probe")
-    with pytest.raises(ValueError, match="fused"):
+    # the whole-IPM kernel that baked fixed centering is gone
+    with pytest.raises(ValueError, match="unknown riccati backend"):
         LaneRTISolver(spec, centering="adaptive", riccati="fused")
-    with pytest.raises(ValueError, match="fused"):
+    with pytest.raises(ValueError, match="unknown riccati backend"):
         LaneRTISolver(spec, centering="mehrotra", riccati="fused")
 
 

@@ -107,26 +107,28 @@ def test_condense_validation():
     spec = builders.usv_guidance_ca1(Tf=1.0, N=10)
     with pytest.raises(ValueError, match="divide"):
         LaneRTISolver(spec, condense=3)
-    with pytest.raises(ValueError, match="fused"):
+    # the whole-IPM kernel that rejected condensing is gone
+    with pytest.raises(ValueError, match="unknown riccati backend"):
         LaneRTISolver(spec, condense=2, riccati="fused")
 
 
-def test_condensed_with_pallas_riccati_interpret():
+def test_condensed_with_pallas_riccati_interpret(interpret_riccati_kernel):
     """The condensed macro QP (stage-varying cost, nu=M) must ride the
-    Pallas Riccati kernel unchanged (interpret mode on CPU)."""
+    Triton Riccati kernel unchanged (interpret mode on CPU)."""
     spec = builders.usv_guidance_ca1(Tf=0.5, N=8)
     sc = scenarios.guidance_ca1_default()
-    from mpc_collisionavoidance_tpu.kernels.riccati_pallas import LANE_BLOCK
+    from mpc_collisionavoidance_tpu.kernels.riccati_pallas import (
+        LANE_BLOCK)
     Bk = LANE_BLOCK
     x0 = np.broadcast_to(sc.x0, (Bk, 8)).copy()
     params = to_lanes(np.broadcast_to(sc.params, (Bk, 16)).astype(np.float32))
     lh = to_lanes(np.broadcast_to(sc.lh, (Bk, 8)).astype(np.float32))
     outs = {}
-    for ric in ("lax", "pallas_interpret"):
+    for ric in ("lax", "pallas"):
         sol = LaneRTISolver(spec, ipm_iters=6, condense=4, riccati=ric)
         st = sol.init_state(x0)
         xL = to_lanes(jnp.asarray(x0, jnp.float32))
         st, out = jax.jit(sol.step_fn)(st, xL, params, lh)
         outs[ric] = np.asarray(out.u0)
-    np.testing.assert_allclose(outs["pallas_interpret"], outs["lax"],
+    np.testing.assert_allclose(outs["pallas"], outs["lax"],
                                rtol=1e-4, atol=1e-5)

@@ -3,7 +3,7 @@
 The reference exposes two QP engines behind one switch
 (PARTIAL_CONDENSING_HPIPM vs the commented FULL_CONDENSING_QPOASES,
 reference scripts/usv_guidance_ca1/acados_settings.py:189-190).  Here the
-two TPU engines are cross-checked against each other and against the
+two QP engines are cross-checked against each other and against the
 SLSQP dense oracle, and the condensing map itself is verified exactly.
 """
 

@@ -65,11 +65,12 @@ def test_escalation_is_noop_when_converged():
 
 def test_escalation_config_validation():
     spec = builders.usv_guidance_ca1()
-    with pytest.raises(ValueError, match="fused"):
+    # the whole-IPM kernel that could not escalate is gone
+    with pytest.raises(ValueError, match="unknown riccati backend"):
         LaneRTISolver(spec, riccati="fused", extra_iters=4)
     with pytest.raises(ValueError, match="lane-engine-only"):
         SolverConfig(engine="instance", extra_iters=4)
-    with pytest.raises(ValueError, match="fused"):
+    with pytest.raises(ValueError, match="unknown riccati backend"):
         SolverConfig(engine="lane", riccati="fused", extra_iters=4)
 
 

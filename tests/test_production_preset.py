@@ -12,7 +12,9 @@ import subprocess
 import sys
 from pathlib import Path
 
-from mpc_collisionavoidance_tpu.config import production_engine
+import pytest
+
+from mpc_collisionavoidance_tpu.config import SolverConfig, production_engine
 from mpc_collisionavoidance_tpu.rt.server import resolve_engine_args
 
 REPO = Path(__file__).resolve().parent.parent
@@ -26,7 +28,7 @@ def _bench_module():
 
 
 def test_preset_shape():
-    for platform, kernel in (("cpu", "lax"), ("tpu", "pallas")):
+    for platform, kernel in (("cpu", "lax"), ("gpu", "auto")):
         p = production_engine(platform)
         assert p.engine == "lane"
         assert p.centering == "adaptive"
@@ -37,23 +39,30 @@ def test_preset_shape():
         # warm QPs start the barrier where the gradient says, not at 1.0
         assert p.mu0 == "auto"
         assert p.riccati == kernel
-        assert p.linearize == kernel
+
+
+@pytest.mark.parametrize("platform", ["rocm", "METAL", "interpreter"])
+def test_preset_refuses_unknown_platform(platform):
+    """No platform falls through to a default engine: only cpu and gpu
+    have a preset."""
+    with pytest.raises(ValueError, match="no production preset"):
+        production_engine(platform)
 
 
 def test_bench_and_server_resolve_to_preset(monkeypatch):
     """bench.py's engine defaults == the server CLI's resolved engine ==
     the preset, field by field, on both platforms."""
     for bad in ("BENCH_IPM_ITERS", "BENCH_CENTERING", "BENCH_RICCATI",
-                "BENCH_LINEARIZE", "BENCH_EXTRA_ITERS", "BENCH_CONDENSE"):
+                "BENCH_EXTRA_ITERS", "BENCH_CONDENSE"):
         monkeypatch.delenv(bad, raising=False)
     bench = _bench_module()
-    for platform in ("cpu", "tpu"):
+    for platform in ("cpu", "gpu"):
         p = production_engine(platform)
         b = bench.engine_defaults(p)
         s = resolve_engine_args(platform=platform)
         assert s["engine"] == p.engine == "lane"
         for k in ("ipm_iters", "ipm_tol", "centering", "riccati",
-                  "linearize", "extra_iters", "stall_tol", "mu0"):
+                  "extra_iters", "stall_tol", "mu0"):
             assert b[k] == s[k] == getattr(p, k), (platform, k, b[k], s[k])
 
 
@@ -83,3 +92,25 @@ def test_cli_run_uses_production_preset():
     assert metrics["schedule"] == (
         f"adaptive@{p.ipm_iters}+esc{p.extra_iters}")
     assert metrics["finite"] is True
+
+
+@pytest.mark.parametrize("riccati", ["fused", "fused_interpret",
+                                     "pallas_interpret"])
+def test_removed_riccati_options_rejected(riccati):
+    """The whole-IPM kernel and interpret mode are no config values:
+    nothing a user sets can reach Pallas interpret mode."""
+    with pytest.raises(ValueError, match="unknown riccati backend"):
+        SolverConfig(engine="lane", riccati=riccati)
+
+
+def test_removed_linearize_option_rejected():
+    """Linearization has one route (XLA); the option went with its
+    kernel, on the config, the server and bench alike."""
+    from mpc_collisionavoidance_tpu.rt.server import main as server_main
+
+    with pytest.raises(TypeError, match="linearize"):
+        SolverConfig(engine="lane", linearize="pallas")
+    with pytest.raises(SystemExit):
+        server_main(["--linearize", "pallas"])
+    assert "linearize" not in _bench_module().engine_defaults(
+        production_engine("cpu"))

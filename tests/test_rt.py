@@ -579,3 +579,21 @@ def test_server_tcp_transport(tmp_path):
         assert st_t in (0, 1)
         np.testing.assert_allclose(u_t, u_u, rtol=0, atol=1e-6)
         np.testing.assert_allclose(x_t, x_u, rtol=0, atol=1e-6)
+
+
+def test_server_cli_entry_serves_until_stop_event():
+    """`rt.server.main([...], stop_event=...)` — the `python -m ...rt.server`
+    entry, embedded on a thread — serves B=1 and fleet ticks through the
+    production preset and shuts down when the event is set (the serving
+    phase of chip_smoke.py, at a tiny size on the CPU)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    before = {t.name for t in threading.enumerate()}
+    smoke.phase_serving(b1_ticks=3, fleet_ticks=2, fleet=2,
+                        server_args=("--platform", "cpu", "--max-batch", "4",
+                                     "-N", "10", "--tf", "1.0"))
+    assert "rt-server" not in {t.name for t in threading.enumerate()} - before

@@ -9,7 +9,7 @@ identity/zero Jacobian columns (ops/sparsity.py).  These tests pin:
    would silently corrupt the Jacobian; an extra one only wastes work);
 2. the sparse lane-engine QP is BITWISE identical to the dense one
    (skipped passes are exactly trivial, not approximately);
-3. the Pallas kernel honors the declarations (interpret mode).
+   at an iterate produced by either Riccati sweep.
 """
 
 import dataclasses
@@ -55,7 +55,7 @@ def test_curved_race_car_is_dense():
     assert 0 in m.f_dep and 1 in m.f_dep
 
 
-def _qp_pair(linearize, interpret_suffix=""):
+def _qp_pair(riccati):
     spec = builders.usv_guidance_ca1(Tf=1.0, N=10)
     sc = scenarios.guidance_ca1_default()
     B = 4
@@ -69,7 +69,7 @@ def _qp_pair(linearize, interpret_suffix=""):
 
     qps = []
     for dense in (False, True):
-        s = LaneRTISolver(spec, ipm_iters=5, linearize=linearize)
+        s = LaneRTISolver(spec, ipm_iters=5, riccati=riccati)
         if dense:
             m = spec.model
             s.spec = dataclasses.replace(
@@ -81,9 +81,11 @@ def _qp_pair(linearize, interpret_suffix=""):
     return qps
 
 
-@pytest.mark.parametrize("linearize", ["lax", "pallas_interpret"])
-def test_sparse_qp_bitwise_equals_dense(linearize):
-    qp_sparse, qp_dense = _qp_pair(linearize)
+@pytest.mark.parametrize("riccati", ["lax", "pscan"])
+def test_sparse_qp_bitwise_equals_dense(riccati):
+    """The QP built with declared sparsity equals the dense build bitwise,
+    at an iterate produced by either Riccati sweep."""
+    qp_sparse, qp_dense = _qp_pair(riccati)
     for field in ("A", "B", "c", "Ch", "Cs", "hofs", "qx", "qu"):
         a = np.asarray(getattr(qp_sparse, field))
         b = np.asarray(getattr(qp_dense, field))

@@ -154,6 +154,7 @@ def test_config_mehrotra_and_auto_mu0():
     assert s.centering == "mehrotra" and s.mu0 == "auto"
     with pytest.raises(ValueError, match="mu0"):
         FrameworkConfig(solver=SolverConfig(mu0="bogus"))
-    with pytest.raises(ValueError, match="fused"):
+    # the whole-IPM kernel (fixed centering only) is gone
+    with pytest.raises(ValueError, match="unknown riccati backend"):
         FrameworkConfig(solver=SolverConfig(centering="mehrotra",
                                             riccati="fused"))
